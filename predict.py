@@ -44,65 +44,55 @@ def main():
     ap.add_argument("--shirg-method", default="base")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--int4", action="store_true",
-                    help="W4A8 serving layout (grouped-int4 weights + "
-                         "per-token int8 activations; bench.py default): "
-                         "fastest config, half the LM weight HBM, ~1% "
-                         "logit rel-err — gate quality per checkpoint "
-                         "with scripts/verify_checkpoint.py")
+                    help="grouped-int4 LM weights (bench.py default): a "
+                         "quarter of the bf16 weight bytes, ~1%% logit "
+                         "rel-err — gate quality per checkpoint with "
+                         "scripts/verify_checkpoint.py")
     ap.add_argument("--mixed", action="store_true",
-                    help="mixed-precision serving (bench.py B=1 default; "
-                         "implies --int4): keep an int8 LM tree for the "
-                         "compute-bound prefill (s8xs8 MXU) next to the "
-                         "int4 decode tree — measured 0.195 vs 0.201 "
-                         "(LLaDA) / 0.182 vs 0.196 (Dream) s/image; "
-                         "costs ~+7.5G HBM for the 8B int8 tree")
+                    help="mixed-precision serving (implies --int4): keep "
+                         "an int8 LM tree + int8 activations for the "
+                         "compute-bound prefill next to the int4 decode "
+                         "tree; costs ~+7.5G device memory for the 8B "
+                         "int8 tree")
     ap.add_argument("--kv4", action="store_true",
                     help="int4 KV cache (memory-headroom lever; gate with "
                          "scripts/verify_checkpoint.py --kv4-check)")
     ap.add_argument("--kv8", action="store_true",
-                    help="int8 KV cache + fused decode attention (bench "
+                    help="int8 KV cache + decode attention over it (bench "
                          "--kv8; quality-gate per checkpoint with "
                          "scripts/verify_checkpoint.py --kv8-check)")
     ap.add_argument("--no-quant", action="store_true",
-                    help="keep bf16 LM weights (full 8B won't fit one v5e)")
+                    help="keep bf16 LM weights")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel bf16 serving over N devices "
                          "(implies --no-quant: zero quantization error; "
-                         "the bf16 8B fused generate fits a v5e chip "
-                         "from tp=2 — col/row-paired GSPMD sharding, "
-                         "parallel/sharding.py; AOT table NOTES_ROUND5)")
+                         "col/row-paired GSPMD sharding, "
+                         "parallel/sharding.py)")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--warmup", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-compile-cache", action="store_true",
                     help="disable the persistent XLA compilation cache "
-                         "(default ~/.cache/lavida_mod_tpu/xla — 8B "
-                         "serve graphs compile 5-15 min cold)")
+                         "(JAX_COMPILATION_CACHE_DIR, else .jax_cache/ "
+                         "in the checkout — 8B serve graphs take minutes "
+                         "to compile cold)")
     args = ap.parse_args()
 
-    import os as _os
-
-    import jax as _jax
-    if _os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        try:
-            _jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
     if not args.no_compile_cache:
-        from lavida_mod_tpu.utils.compile_cache import enable as _cc
+        from lavida_mod.utils.compile_cache import enable as _cc
 
         _cc()
 
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         GenerationConfig, LaViDaConfig, VisionConfig,
         tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.data import SigLIPImageProcessor, process_images
-    from lavida_mod_tpu.data.conversation import get_conv_template
-    from lavida_mod_tpu.data.prompts import tokenizer_image_token
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.data import SigLIPImageProcessor, process_images
+    from lavida_mod.data.conversation import get_conv_template
+    from lavida_mod.data.prompts import tokenizer_image_token
+    from lavida_mod.models.lavida import LaViDa
 
     dtype = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}[args.dtype]
 
@@ -128,20 +118,17 @@ def main():
             raise SystemExit(
                 "--tp is bf16 serving (quantized layouts have custom leaf "
                 "structures the sharding rules don't cover); drop "
-                "--int4/--mixed — tp>=2 fits the bf16 8B without them")
+                "--int4/--mixed")
         if args.kv8 or args.kv4:
-            # quantized-KV decode attention is a raw pallas_call with no
-            # shard_map partitioning; sharded generate with kv8/kv4 has no
-            # parity test or AOT row — reject rather than silently
-            # replicate the cache
-            raise SystemExit("--tp is bf16 serving; drop --kv8/--kv4 "
-                             "(tp>=2 has the HBM headroom kv8 buys)")
+            # sharded generate with kv8/kv4 has no parity test — reject
+            # rather than silently replicate the cache
+            raise SystemExit("--tp is bf16 serving; drop --kv8/--kv4")
         args.no_quant = True
 
     if args.model_path:
-        # host_staging: convert on CPU so the bf16 8B never hits HBM
-        # pre-quantization (measured OOM otherwise, rehearse_8b_load);
-        # .to_device() below ships the final serving layout.  tp>1 also
+        # host_staging: convert on CPU so the bf16 8B never occupies
+        # device memory beside its quantized copy; .to_device() below
+        # ships the final serving layout.  tp>1 also
         # stages: shard() then moves only 1/tp per device.
         model = LaViDa.load(
             args.model_path, cfg if args.tiny else None, dtype,
@@ -150,7 +137,7 @@ def main():
         if args.aspect:  # explicit CLI override beats the checkpoint's
             model.cfg = model.cfg.replace(vision=model.cfg.vision.replace(
                 image_aspect_ratio=args.aspect))
-        from lavida_mod_tpu.data.tokenizer import load_hf_or_offline
+        from lavida_mod.data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)
     else:
@@ -193,7 +180,7 @@ def main():
         if args.shirg:
             import jax.numpy as _jnp
 
-            from lavida_mod_tpu.models.shirg import (
+            from lavida_mod.models.shirg import (
                 process_shirg_2view, shirg_encode,
             )
 

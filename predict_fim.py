@@ -48,28 +48,20 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import os as _os
+    from lavida_mod.utils.compile_cache import enable as _cc
 
-    import jax as _jax
-    if _os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        try:
-            _jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
-    from lavida_mod_tpu.utils.compile_cache import enable as _cc
-
-    _cc()  # 8B serve graphs compile 5-15 min cold; cache restarts
+    _cc()  # 8B serve graphs take minutes to compile cold; cache them
 
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         GenerationConfig, LaViDaConfig, VisionConfig,
         tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.data import SigLIPImageProcessor, process_images
-    from lavida_mod_tpu.data.conversation import get_conv_template
-    from lavida_mod_tpu.data.prompts import tokenizer_image_token
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.data import SigLIPImageProcessor, process_images
+    from lavida_mod.data.conversation import get_conv_template
+    from lavida_mod.data.prompts import tokenizer_image_token
+    from lavida_mod.models.lavida import LaViDa
 
     if args.tiny or not args.model_path:
         cfg = LaViDaConfig(
@@ -85,12 +77,11 @@ def main():
     else:
         # geometry sniffed from the checkpoint's config.json
         # (config_from_checkpoint); serving layout (predict.py:111-119):
-        # the 8B bf16 weights cannot co-reside with the KV cache in one
-        # v5e's HBM; host_staging keeps the bf16 copy off-chip until
-        # quantized (measured OOM otherwise)
+        # host_staging keeps the bf16 copy off the device until
+        # quantized
         model = LaViDa.load(args.model_path, host_staging=True)
         model.to_serving_layout(quant="int8")
-        from lavida_mod_tpu.data.tokenizer import load_hf_or_offline
+        from lavida_mod.data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)
     cfg = model.cfg

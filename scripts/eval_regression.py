@@ -127,7 +127,7 @@ def run_eval(tree: str, tasks: list[str], data_paths: dict, limit: int,
     """Run the eval CLI from source tree `tree` (tiny model, CPU)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=tree)
     cmd = [
-        sys.executable, "-m", "lavida_mod_tpu.eval", "--tiny",
+        sys.executable, "-m", "lavida_mod.eval", "--tiny",
         "--tasks", ",".join(tasks),
         "--data-path", ",".join(f"{t}={p}" for t, p in data_paths.items()),
         "--limit", str(limit), "--output", out_path,

@@ -196,7 +196,7 @@ NOT_CALIBRATABLE = {
 
 def plant_candidates(task, doc: dict, pred: str) -> list:
     """Target values that could make score_doc(doc, pred) positive."""
-    from lavida_mod_tpu.eval import filters as F
+    from lavida_mod.eval import filters as F
 
     filt = task.apply_filters(pred, doc)
     cands = [filt, pred, str(filt).strip().lower()]
@@ -271,21 +271,17 @@ def main():
     args = ap.parse_args()
 
     import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        jax.config.update("jax_platforms", "cpu")
-
     import jax.numpy as jnp
     import numpy as np
     from PIL import Image
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.eval.adapter import LavidaEvalModel
-    from lavida_mod_tpu.eval.evaluator import evaluate
-    from lavida_mod_tpu.eval.tasks import get_task, list_tasks
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.eval.adapter import LavidaEvalModel
+    from lavida_mod.eval.evaluator import evaluate
+    from lavida_mod.eval.tasks import get_task, list_tasks
+    from lavida_mod.models.lavida import LaViDa
 
     os.makedirs(args.workdir, exist_ok=True)
     rng = np.random.default_rng(0)
@@ -297,7 +293,7 @@ def main():
                                          dtype=np.uint8)).save(p)
         imgs.append(f"img{i}.png")
 
-    # same tiny setup as `python -m lavida_mod_tpu.eval --tiny`
+    # same tiny setup as `python -m lavida_mod.eval --tiny`
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
         vision=VisionConfig(

@@ -5,29 +5,16 @@
 #  cosine_with_min_lr, in-training lite evals.  Effective global batch
 #  matches the reference's 128 = 8 GPUs x 4/device x accum 4.)
 #
-# Precision recipes (all AOT-verified against real v5e topologies —
-# XLA's compile-time HBM verdict; scripts/probes/_aot_memory.py):
-#
-#   v5e-16 (fsdp=16), FAITHFUL (--precision mixed = DeepSpeed bf16-engine
-#   parity: f32 masters + f32 Adam + f32 accumulation, bf16 compute):
-#     --batch-size 16 --grad-accum 8   (est peak 14.66G/chip)  <- default
-#     --batch-size 32 --grad-accum 4   (also compiles; half the microsteps)
-#
-#   v5e-8 (fsdp=8): the faithful policy does NOT fit at ANY batch
-#   (f32 params+mu+nu = 12G/chip before activations; B=8 ga=1 OOMs by
-#   2.3G, B=16 ga=8 by 8.2G).  The 8-chip fallback is --precision bf16
-#   (bf16 weights+Adam states; gradient ACCUMULATION still f32 via
-#   multi_steps_f32) at --batch-size 8 --grad-accum 16 (compiles; the
-#   old 16x8 bf16 recipe OOMs by 1.32G once the accumulator is f32).
-#   bf16 Adam states are a documented deviation: updates below ~0.2%
-#   relative round to zero (tests/test_mixed_precision.py shows the
-#   stall on RMSNorm scales).
-NCHIPS=${NCHIPS:-16}
-if [ "$NCHIPS" -ge 16 ]; then
-  PREC=mixed;  FSDP=16; BATCH=16; ACCUM=8
-else
-  PREC=bf16;   FSDP=8;  BATCH=8;  ACCUM=16
-fi
+# Precision: --precision mixed = DeepSpeed bf16-engine parity (f32 masters
+# + f32 Adam + f32 accumulation, bf16 compute).  The batch that fits a
+# given card count is not measured yet: chip_smoke.py --four runs two
+# full-depth 8B steps at fsdp=4 and prints per-card peak memory; size
+# BATCH from that.  Effective global batch = BATCH x ACCUM (reference 128).
+NGPUS=${NGPUS:-4}
+PREC=${PREC:-mixed}
+FSDP=$NGPUS
+BATCH=${BATCH:-16}
+ACCUM=${ACCUM:-8}
 python train.py \
   --data-path "${DATA:-scripts/stage2.yaml}" \
   --model-path runs/stage1/checkpoint-2200 \

@@ -1,8 +1,7 @@
 """Generate a synthetic LLaVA-layout finetune dataset (images + json).
 
-For driving `train.py` end-to-end without HF datasets (VERDICT r4 item 3:
-the full CLI — dataset -> collator -> step -> logger -> orbax -> resume —
-had only ever run through unit fixtures).  Schema matches the reference's
+For driving `train.py` end-to-end without HF datasets (the full CLI —
+dataset -> collator -> step -> logger -> orbax -> resume).  Schema matches the reference's
 LLaVA json ("image" + "conversations" with <image> in the first human
 turn; /root/reference/llava/train/train.py:418-520 record handling).
 

@@ -38,21 +38,16 @@ def main():
     args = ap.parse_args()
 
     import jax
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
     import jax.numpy as jnp
     from PIL import Image
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         GenerationConfig, LaViDaConfig, VisionConfig,
         tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.data import SigLIPImageProcessor, process_images
-    from lavida_mod_tpu.models.lavida import LaViDa
-    from lavida_mod_tpu.models.shirg import process_shirg_2view, shirg_encode
+    from lavida_mod.data import SigLIPImageProcessor, process_images
+    from lavida_mod.models.lavida import LaViDa
+    from lavida_mod.models.shirg import process_shirg_2view, shirg_encode
 
     if args.tiny or not args.model_path:
         cfg = LaViDaConfig(
@@ -67,7 +62,7 @@ def main():
     else:
         cfg = LaViDaConfig()
         model = LaViDa.load(args.model_path, cfg)
-        from lavida_mod_tpu.data.tokenizer import load_hf_or_offline
+        from lavida_mod.data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)
 
@@ -99,8 +94,8 @@ def main():
 
     def ids_for(text):
         if tokenizer is not None:
-            from lavida_mod_tpu.data.conversation import get_conv_template
-            from lavida_mod_tpu.data.prompts import tokenizer_image_token
+            from lavida_mod.data.conversation import get_conv_template
+            from lavida_mod.data.prompts import tokenizer_image_token
 
             conv = get_conv_template("llada")
             conv.tokenizer = tokenizer
@@ -140,7 +135,7 @@ def main():
             row["baseline_answer"] = model.decode_output(out_b, tokenizer)
             row["shirg_answer"] = model.decode_output(out_s, tokenizer)
             if "target" in s:
-                from lavida_mod_tpu.eval.metrics import exact_match
+                from lavida_mod.eval.metrics import exact_match
 
                 row["baseline_acc"] = exact_match(
                     row["baseline_answer"], s["target"]

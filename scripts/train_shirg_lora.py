@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""SHIRG Extra-LoRA end-to-end training harness — the TPU rebuild of
+"""SHIRG Extra-LoRA end-to-end training harness — the JAX rebuild of
 shirg/train_shirg_lora.py:86-1145 + shirg_lora_config.py:17-140:
 
   - LoRA rank 64 / alpha 128 on BOTH projector linears, SigLIP blocks
@@ -51,27 +51,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import (LaViDaConfig, VisionConfig,
-                                       tiny_llada_config,
-                                       tiny_siglip_config)
-    from lavida_mod_tpu.data.image_processor import SigLIPImageProcessor
-    from lavida_mod_tpu.models import multimodal as mm
-    from lavida_mod_tpu.models.lavida import LaViDa
-    from lavida_mod_tpu.models.shirg import process_shirg_2view
-    from lavida_mod_tpu.train.lora import (add_shirg_lora,
-                                           make_lora_optimizer,
-                                           make_shirg_lora_train_step,
-                                           split_lora_state)
-    from lavida_mod_tpu.utils import rank0_print
-    from lavida_mod_tpu.utils.checkpoint import save_checkpoint
+    from lavida_mod.config import (LaViDaConfig, VisionConfig,
+                                   tiny_llada_config,
+                                   tiny_siglip_config)
+    from lavida_mod.data.image_processor import SigLIPImageProcessor
+    from lavida_mod.models import multimodal as mm
+    from lavida_mod.models.lavida import LaViDa
+    from lavida_mod.models.shirg import process_shirg_2view
+    from lavida_mod.train.lora import (add_shirg_lora,
+                                       make_lora_optimizer,
+                                       make_shirg_lora_train_step,
+                                       split_lora_state)
+    from lavida_mod.utils import rank0_print
+    from lavida_mod.utils.checkpoint import save_checkpoint
 
     if args.tiny:
         cfg = LaViDaConfig(
@@ -147,7 +141,7 @@ def main(argv=None):
         pix = np.stack(pix)  # [B, 2, C, S, S]
         # image-token count from one traced encode (tiny) or 980 (full)
         if n_img is None:
-            from lavida_mod_tpu.models.shirg import shirg_encode
+            from lavida_mod.models.shirg import shirg_encode
             n_img = jax.eval_shape(
                 lambda p, v: shirg_encode(p, cfg, v),
                 jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
@@ -177,7 +171,7 @@ def main(argv=None):
             t0 = time.time()
         if args.eval_every and (step + 1) % args.eval_every == 0 \
                 and args.eval_tasks:
-            from lavida_mod_tpu.train.eval_hook import run_in_training_eval
+            from lavida_mod.train.eval_hook import run_in_training_eval
 
             scores = run_in_training_eval(
                 cfg, params, None, args.eval_tasks.split(","),

@@ -38,16 +38,14 @@ def main() -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--atol", type=float, default=0.15,
                     help="max |logit delta| tolerance (bf16 8B band)")
-    ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (parity, not speed)")
     ap.add_argument("--quant-check", action="store_true",
-                    help="also gate the W4A8 serving layout: quantize the "
+                    help="also gate the int4 serving layout: quantize the "
                          "loaded weights to grouped int4 and compare "
                          "logits + greedy tokens vs the f32 forward")
     ap.add_argument("--quant-rtol", type=float, default=0.03,
-                    help="max relative logit error for the W4A8 gate")
+                    help="max relative logit error for the int4 gate")
     ap.add_argument("--quant-agree", type=float, default=0.95,
-                    help="min greedy-token agreement for the W4A8 gate")
+                    help="min greedy-token agreement for the int4 gate")
     ap.add_argument("--kv8-check", action="store_true",
                     help="also gate the int8-KV-cache decode (bench "
                          "--kv8 / worker --kv8): run a short cached "
@@ -63,15 +61,12 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
-    from lavida_mod_tpu.config import LaViDaConfig
-    from lavida_mod_tpu.models import llada as jl
-    from lavida_mod_tpu.models.lavida import (
+    from lavida_mod.config import LaViDaConfig
+    from lavida_mod.models import llada as jl
+    from lavida_mod.models.lavida import (
         convert_lavida_state_dict, load_state_shards,
     )
 
@@ -137,7 +132,7 @@ def main() -> int:
     print("[verify] PASS" if ok else "[verify] FAIL")
 
     if args.quant_check and ok:
-        # W4A8 serving-layout quality gate on the REAL weights: logit
+        # int4 serving-layout quality gate on the REAL weights: logit
         # error + greedy-token agreement vs the f32 reference forward
         # (this is the per-checkpoint gate the bench default's ~1%
         # rel-err claim defers to)
@@ -147,18 +142,18 @@ def main() -> int:
         qlogits = np.asarray(qlogits, np.float32)
         rel = np.abs(qlogits - logits).max() / (np.abs(logits).max() + 1e-9)
         qagree = (qlogits.argmax(-1) == top_ours).mean()
-        print(f"[verify:w4a8] rel|Δlogit| = {rel:.4f}   "
+        print(f"[verify:int4] rel|Δlogit| = {rel:.4f}   "
               f"greedy-token agreement = {qagree:.3f}")
         q_ok = rel <= args.quant_rtol and qagree >= args.quant_agree
-        print("[verify:w4a8] PASS" if q_ok else
-              "[verify:w4a8] FAIL — serve with --int8 for this checkpoint")
+        print("[verify:int4] PASS" if q_ok else
+              "[verify:int4] FAIL — serve with --int8 for this checkpoint")
         ok = ok and q_ok
 
     if (args.kv8_check or args.kv4_check) and ok:
         # int8-KV decode gate, isolated on the weight-only int8 layout
-        # (kv8 and W4A8 are independent quality knobs)
-        from lavida_mod_tpu.config import GenerationConfig
-        from lavida_mod_tpu.generation import diffusion
+        # (kv8 and int4 are independent quality knobs)
+        from lavida_mod.config import GenerationConfig
+        from lavida_mod.generation import diffusion
 
         p8 = jl.quantize_params(jl.unstack_blocks(params), bits=8)
         gen = GenerationConfig(max_new_tokens=16, block_length=16,

@@ -15,7 +15,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(
     coordinator_address=f"127.0.0.1:{port}", num_processes=2,
     process_id=pid)
@@ -26,12 +25,12 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lavida_mod_tpu.config import LaViDaConfig, tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.parallel.mesh import make_mesh, maybe_init_distributed
-from lavida_mod_tpu.parallel.sharding import shard_params
-from lavida_mod_tpu.train.step import (jit_train_step, make_optimizer,
-                                       make_train_step)
+from lavida_mod.config import LaViDaConfig, tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.parallel.mesh import make_mesh, maybe_init_distributed
+from lavida_mod.parallel.sharding import shard_params
+from lavida_mod.train.step import (jit_train_step, make_optimizer,
+                                   make_train_step)
 
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
@@ -83,7 +82,7 @@ for i in range(3):
 assert losses[-1] < losses[0], losses
 
 # --- distributed eval: shard_docs + allgather_rows ---
-from lavida_mod_tpu.eval.evaluator import allgather_rows, shard_docs
+from lavida_mod.eval.evaluator import allgather_rows, shard_docs
 
 docs = [{"id": i} for i in range(10)]
 mine = shard_docs(docs)
@@ -93,7 +92,7 @@ merged = allgather_rows(rows)
 assert sorted(r["id"] for r in merged) == list(range(10)), merged
 
 # --- sharded orbax save / restore round-trip ---
-from lavida_mod_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+from lavida_mod.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 path = save_checkpoint(tmpdir, step=3, params=params)
 restored = restore_checkpoint(path, template={"params": params, "step": 3})

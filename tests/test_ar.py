@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import tiny_llada_config
-from lavida_mod_tpu.generation.ar_sampler import ar_generate_fused
-from lavida_mod_tpu.models import llada as jl
+from lavida_mod.config import tiny_llada_config
+from lavida_mod.generation.ar_sampler import ar_generate_fused
+from lavida_mod.models import llada as jl
 
 
 @pytest.fixture(scope="module")
@@ -94,9 +94,9 @@ def test_ar_fused_unrolled_params_match():
     import jax.numpy as jnp
     import numpy as np
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.generation.ar_sampler import ar_generate_fused
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.generation.ar_sampler import ar_generate_fused
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config().replace(block_type="llama")
     params = jl.init_params(cfg, jax.random.PRNGKey(3))

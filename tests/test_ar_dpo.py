@@ -16,7 +16,7 @@ import torch.nn.functional as TF  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from lavida_mod_tpu.train import dpo  # noqa: E402
+from lavida_mod.train import dpo  # noqa: E402
 
 
 def torch_get_batch_logps(logits, labels, average_log_prob=False):

@@ -11,7 +11,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.utils import (
+from lavida_mod.utils import (
     latest_checkpoint, restore_checkpoint, save_checkpoint, wait_for_saves,
 )
 

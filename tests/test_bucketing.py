@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     GenerationConfig, LaViDaConfig, VisionConfig,
     tiny_llada_config, tiny_siglip_config,
 )
-from lavida_mod_tpu.models.lavida import LaViDa
+from lavida_mod.models.lavida import LaViDa
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +39,7 @@ def test_bucketed_generate_matches_exact(model, prompt_len):
 
 
 def test_bucketed_with_image(model):
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod.data.anyres import anyres_grid_shape
 
     rng = np.random.default_rng(0)
     nw, nh = anyres_grid_shape(
@@ -65,13 +65,10 @@ def test_bucket_is_noop_when_aligned(model):
 
 
 def test_flash_prefill_padded_matches_dense(model):
-    """use_flash_prefill pads the prefix to a 128 multiple and routes the
-    prefill through the Pallas flash kernel (segment-id masked); tokens
-    must match the exact-length dense prefill (interpret mode on CPU; the
-    same path is compiled on the real chip by bench.py)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from lavida_mod_tpu.generation import diffusion
+    """A prefix front-padded to a 128 multiple, masked by prefix_valid,
+    through the masked prefill attention: tokens must match the
+    exact-length prefill."""
+    from lavida_mod.generation import diffusion
 
     ids = np.arange(3, 40)  # P=37 -> padded to 128
     gen = GenerationConfig(max_new_tokens=16, block_length=16,
@@ -79,17 +76,22 @@ def test_flash_prefill_padded_matches_dense(model):
                            schedule_shift=0.33)
     exact = model.generate(ids, gen=gen)
     prefix = model.encode_prompt(ids)
-    with pltpu.force_tpu_interpret_mode():
-        out = diffusion.generate(
-            model.params["llada"], model.cfg.llada, prefix, gen,
-            use_flash_prefill=True,
-        )
+    P = prefix.shape[1]
+    Pb = -(-P // 128) * 128
+    padded = jnp.concatenate(
+        [jnp.zeros((1, Pb - P, prefix.shape[-1]), prefix.dtype), prefix],
+        axis=1)
+    valid = jnp.arange(Pb)[None] >= Pb - P
+    out = diffusion.generate(
+        model.params["llada"], model.cfg.llada, padded, gen,
+        prefix_valid=valid,
+    )
     np.testing.assert_array_equal(np.asarray(out)[0], exact)
 
 
 def test_generate_fused_matches_generate(model):
     """Single-executable fused path == multi-dispatch path, token-exact."""
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod.data.anyres import anyres_grid_shape
 
     rng = np.random.default_rng(1)
     nw, nh = anyres_grid_shape(
@@ -110,7 +112,7 @@ def test_generate_fused_bucketed_matches(model):
     generate(prefix_bucket): the pad rows are masked via prefix_valid so
     the splice-level bucketing is semantics-free, and two prompt lengths
     in the same bucket share one compiled executable."""
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod.data.anyres import anyres_grid_shape
 
     rng = np.random.default_rng(2)
     nw, nh = anyres_grid_shape(

@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-from lavida_mod_tpu.generation import diffusion
-from lavida_mod_tpu.models import llada as jl
+from lavida_mod.config import GenerationConfig, tiny_llada_config
+from lavida_mod.generation import diffusion
+from lavida_mod.models import llada as jl
 
 CFG = tiny_llada_config()
 PARAMS = jl.init_params(CFG, jax.random.PRNGKey(0))
@@ -75,22 +75,18 @@ def test_chunked_prefill_kv8():
     entry; the write-time variant measured 3.4x slower on chip — see
     generate_chunked_prefill) must be token-exact vs the monolithic
     fused path, which quantizes the same prealloc'd [B, P+G] rows."""
-    from lavida_mod_tpu.ops import kv8_attention as KV8
+    from lavida_mod.ops import kv8_attention as KV8
 
     B = 5
     params_u = jl.unstack_blocks(PARAMS)
     prefix = _prefix(B)
     gen = _gen_cfg()
-    KV8._INTERPRET[0] = True  # Pallas decode kernel on the CPU backend
-    try:
-        for kv8 in (True, 4):
-            ref = np.asarray(diffusion.generate(
-                params_u, CFG, prefix, gen, kv8=kv8))
-            out = np.asarray(diffusion.generate_chunked_prefill(
-                params_u, CFG, prefix, gen, chunk=2, kv8=kv8))
-            np.testing.assert_array_equal(out, ref, err_msg=f"kv8={kv8}")
-    finally:
-        KV8._INTERPRET[0] = False
+    for kv8 in (True, 4):
+        ref = np.asarray(diffusion.generate(
+            params_u, CFG, prefix, gen, kv8=kv8))
+        out = np.asarray(diffusion.generate_chunked_prefill(
+            params_u, CFG, prefix, gen, chunk=2, kv8=kv8))
+        np.testing.assert_array_equal(out, ref, err_msg=f"kv8={kv8}")
 
 
 def test_chunked_prefill_mixed_identity_tree():
@@ -109,14 +105,9 @@ def test_chunked_prefill_mixed_identity_tree():
 
 def test_chunked_prefill_flash_bucketed_token_exact():
     """The batched worker/eval configuration: bucket-padded prefixes
-    (prefix_valid front-pad mask) + use_flash_prefill (segment-id masked
-    Pallas kernel, interpret on CPU) through the chunked prefill must be
-    token-exact vs the dense unpadded run.  This is what
-    eval/adapter.generate_until_batch serves on TPU — the dense prefill's
-    f32 score temps plus the int4 staging temps OOM'd the B=8 worker
-    graph on one v5e (scripts/probes/_serve_concurrency.py)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    (prefix_valid front-pad mask, applied by the masked prefill attention)
+    through the chunked prefill must be token-exact vs the unpadded run.
+    This is what eval/adapter.generate_until_batch serves."""
     B, P, pad = 5, 8, 8
     prefix = _prefix(B, P)
     gen = _gen_cfg()
@@ -127,16 +118,12 @@ def test_chunked_prefill_flash_bucketed_token_exact():
         axis=1)
     valid = jnp.concatenate(
         [jnp.zeros((B, pad), bool), jnp.ones((B, P), bool)], axis=1)
-    with pltpu.force_tpu_interpret_mode():
-        out = np.asarray(diffusion.generate_chunked_prefill(
-            PARAMS, CFG, padded, gen, chunk=4, prefix_valid=valid,
-            use_flash_prefill=True))
+    out = np.asarray(diffusion.generate_chunked_prefill(
+        PARAMS, CFG, padded, gen, chunk=4, prefix_valid=valid))
     np.testing.assert_array_equal(out, ref)
 
     # unrolled (serving-layout) params through the prealloc path
     lp = jl.unstack_blocks(PARAMS)
-    with pltpu.force_tpu_interpret_mode():
-        out_u = np.asarray(diffusion.generate_chunked_prefill(
-            lp, CFG, padded, gen, chunk=4, prefix_valid=valid,
-            use_flash_prefill=True))
+    out_u = np.asarray(diffusion.generate_chunked_prefill(
+        lp, CFG, padded, gen, chunk=4, prefix_valid=valid))
     np.testing.assert_array_equal(out_u, ref)

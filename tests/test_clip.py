@@ -8,9 +8,9 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.models import clip as jc
-from lavida_mod_tpu.models.clip import clip_vit_l_config, convert_clip_state_dict
-from lavida_mod_tpu.models.tower_builder import build_vision_tower
+from lavida_mod.models import clip as jc
+from lavida_mod.models.clip import clip_vit_l_config, convert_clip_state_dict
+from lavida_mod.models.tower_builder import build_vision_tower
 
 
 @pytest.fixture(scope="module")

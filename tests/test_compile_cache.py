@@ -1,13 +1,17 @@
-"""Persistent-compilation-cache helper (utils/compile_cache.py): the
-serving CLIs enable it by default so 8B cold-start compiles (5-15 min)
-happen once per machine, not once per process."""
+"""Persistent-compilation-cache helper (utils/compile_cache.py): the CLIs
+enable it so 8B cold-start compiles happen once per checkout, not once
+per process.  Path rules: JAX_COMPILATION_CACHE_DIR wins and nothing
+else is set; otherwise one fixed directory inside the checkout."""
 
 import os
+import pathlib
 
 import jax
 import pytest
 
-from lavida_mod_tpu.utils import compile_cache
+from lavida_mod.utils import compile_cache
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -22,38 +26,46 @@ def _restore_jax_cache_config():
                       before[1])
 
 
+def test_default_dir_is_fixed_inside_checkout():
+    d = pathlib.Path(compile_cache.DEFAULT_DIR)
+    assert d == REPO / ".jax_cache"
+    assert ".jax_cache/" in (REPO / ".gitignore").read_text().splitlines()
+
+
 def test_enable_sets_config(tmp_path, monkeypatch):
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     d = str(tmp_path / "xla")
-    got = compile_cache.enable(d, min_compile_secs=3.0)
+    monkeypatch.setattr(compile_cache, "DEFAULT_DIR", d)
+    got = compile_cache.enable(min_compile_secs=3.0)
     assert got == d and os.path.isdir(d)
     assert jax.config.jax_compilation_cache_dir == d
     assert jax.config.jax_persistent_cache_min_compile_time_secs == 3.0
 
 
 def test_unwritable_dir_degrades_to_uncached(tmp_path, monkeypatch):
-    """A read-only HOME (serving containers) must not crash CLI startup
-    — enable() returns None and leaves jax config untouched."""
+    """A read-only checkout must not crash CLI startup — enable() returns
+    None and leaves jax config untouched."""
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     before = jax.config.jax_compilation_cache_dir
     blocked = tmp_path / "blocked"
     blocked.write_text("a file, not a dir")  # makedirs -> OSError
-    assert compile_cache.enable(str(blocked / "xla")) is None
+    monkeypatch.setattr(compile_cache, "DEFAULT_DIR", str(blocked / "xla"))
+    assert compile_cache.enable() is None
     assert jax.config.jax_compilation_cache_dir == before
 
 
-def test_user_env_wins(tmp_path, monkeypatch):
-    """An explicit JAX_COMPILATION_CACHE_DIR is the user's configuration
-    — enable() must not override it with the default dir."""
-    before = jax.config.jax_compilation_cache_dir
+@pytest.mark.parametrize("min_secs", [None, 0.0, 3.0])
+def test_user_env_wins(tmp_path, monkeypatch, min_secs):
+    """An explicit JAX_COMPILATION_CACHE_DIR is the user's configuration:
+    enable() returns it and sets no jax option at all."""
+    before = (jax.config.jax_compilation_cache_dir,
+              jax.config.jax_persistent_cache_min_compile_time_secs)
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
-    assert compile_cache.enable() == str(tmp_path)
-    # config untouched (jax reads the env var natively)
-    assert jax.config.jax_compilation_cache_dir == before
-
-
-def test_explicit_path_beats_env(tmp_path, monkeypatch):
-    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
-    d = str(tmp_path / "explicit")
-    assert compile_cache.enable(d) == d
-    assert jax.config.jax_compilation_cache_dir == d
+    monkeypatch.setattr(compile_cache, "DEFAULT_DIR",
+                        str(tmp_path / "unused"))
+    got = (compile_cache.enable() if min_secs is None
+           else compile_cache.enable(min_compile_secs=min_secs))
+    assert got == str(tmp_path)
+    assert not (tmp_path / "unused").exists()
+    assert (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs) == before

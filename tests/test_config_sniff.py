@@ -16,8 +16,8 @@ import json
 
 import pytest
 
-from lavida_mod_tpu.config import (LaViDaConfig, config_from_checkpoint,
-                                   tiny_llada_config)
+from lavida_mod.config import (LaViDaConfig, config_from_checkpoint,
+                               tiny_llada_config)
 
 
 def _write(tmp_path, cj):
@@ -124,7 +124,7 @@ def test_load_sniffs_geometry(ref_state_ckpt):
     produces the same logits as an explicit tiny config."""
     import numpy as np
 
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.models.lavida import LaViDa
     from test_checkpoint_loading import _logits_of, _tiny_cfg
 
     import jax.numpy as jnp

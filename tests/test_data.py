@@ -5,13 +5,13 @@ import json
 import numpy as np
 import pytest
 
-from lavida_mod_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from lavida_mod_tpu.data.dataset import SupervisedDataset, collate_batch, load_mixture
-from lavida_mod_tpu.data.infill import (
+from lavida_mod.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from lavida_mod.data.dataset import SupervisedDataset, collate_batch, load_mixture
+from lavida_mod.data.infill import (
     FILL_TOKEN, INFILL_TOKEN, insert_infill_substrings,
     maybe_corrupt_assistant_turn,
 )
-from lavida_mod_tpu.data.preprocess import preprocess_diffusion
+from lavida_mod.data.preprocess import preprocess_diffusion
 
 
 class CharTokenizer:
@@ -130,7 +130,7 @@ def test_dataset_and_collator(tmp_path):
     ]
     (tmp_path / "d.json").write_text(json.dumps(recs))
 
-    from lavida_mod_tpu.config import VisionConfig, tiny_siglip_config
+    from lavida_mod.config import VisionConfig, tiny_siglip_config
 
     vc = VisionConfig(
         siglip=tiny_siglip_config(),
@@ -178,7 +178,7 @@ def test_get_batch_parallel_decode_matches_sequential(tmp_path):
     ] + [{"conversations": SRC}]
     (tmp_path / "d.json").write_text(json.dumps(recs))
 
-    from lavida_mod_tpu.config import VisionConfig, tiny_siglip_config
+    from lavida_mod.config import VisionConfig, tiny_siglip_config
 
     vc = VisionConfig(
         siglip=tiny_siglip_config(),
@@ -219,7 +219,7 @@ def test_collator_negative_extra_pad():
 
 
 def test_length_grouped_indices():
-    from lavida_mod_tpu.data.dataset import length_grouped_indices
+    from lavida_mod.data.dataset import length_grouped_indices
 
     rng = np.random.default_rng(0)
     lengths = [10, 200, 30, 150, -40, 5, -300, 80, 120, 60, 90, 45]
@@ -239,7 +239,7 @@ def test_length_grouped_indices():
 def test_debug_finite_utils():
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.utils.debug import (
+    from lavida_mod.utils.debug import (
         assert_all_finite, count_nonfinite, ensure_finite,
     )
 
@@ -258,8 +258,8 @@ def test_dream_conv_fallback_is_chatml_and_matches_training_renderer():
     conversation.py:541-552) and (b) the training-side renderer
     (data/preprocess.py _render_dream) — never LLaMA-3 headers, which
     don't exist in Dream's vocab."""
-    from lavida_mod_tpu.data.conversation import get_conv_template
-    from lavida_mod_tpu.data.preprocess import _STYLES
+    from lavida_mod.data.conversation import get_conv_template
+    from lavida_mod.data.preprocess import _STYLES
 
     conv = get_conv_template("dream")
     conv.system = ""
@@ -295,7 +295,7 @@ def test_conversation_template_registry_breadth():
     """Full reference registry (conversation.py:657-684) present, and the
     separator styles render the reference semantics (expected strings
     derived from conversation.py:65-212)."""
-    from lavida_mod_tpu.data.conversation import conv_templates, get_conv_template
+    from lavida_mod.data.conversation import conv_templates, get_conv_template
 
     for name in ["default", "v0", "v1", "vicuna_v1", "llama_2",
                  "mistral_instruct", "mistral_orca", "mistral_zephyr",
@@ -358,7 +358,7 @@ def test_preprocess_ar_styles():
     """AR preprocessors: labels supervise exactly the assistant responses
     (+closing separator) for every template family (reference
     train.py:418-1258 intent, segment-exact by construction)."""
-    from lavida_mod_tpu.data.preprocess import IGNORE_INDEX, preprocess_ar
+    from lavida_mod.data.preprocess import IGNORE_INDEX, preprocess_ar
 
     class WordTok:
         bos_token_id = 1

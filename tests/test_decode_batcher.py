@@ -5,7 +5,7 @@ gen_kwargs stay in separate groups; errors propagate per batch."""
 import threading
 import time
 
-from lavida_mod_tpu.serve.worker import DecodeBatcher, ModelWorker
+from lavida_mod.serve.worker import DecodeBatcher, ModelWorker
 
 
 class FakeEval:

@@ -10,9 +10,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-from lavida_mod_tpu.generation import diffusion
-from lavida_mod_tpu.models import llada as jl
+from lavida_mod.config import GenerationConfig, tiny_llada_config
+from lavida_mod.generation import diffusion
+from lavida_mod.models import llada as jl
 
 CFG = tiny_llada_config()
 PARAMS = jl.init_params(CFG, jax.random.PRNGKey(0))

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.tools.weights import apply_delta, make_delta
-from lavida_mod_tpu.train.dpo import dpo_loss, make_dpo_train_step
+from lavida_mod.config import tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.tools.weights import apply_delta, make_delta
+from lavida_mod.train.dpo import dpo_loss, make_dpo_train_step
 
 
 @pytest.fixture()
@@ -69,17 +69,17 @@ def test_dpo_training_increases_margin(tiny):
 
 
 def test_eval_hook_runs(tiny):
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_siglip_config,
     )
-    from lavida_mod_tpu.eval.tasks import Task, register
-    from lavida_mod_tpu.train.eval_hook import run_in_training_eval
+    from lavida_mod.eval.tasks import Task, register
+    from lavida_mod.train.eval_hook import run_in_training_eval
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
         vision=VisionConfig(siglip=tiny_siglip_config(), mm_hidden_size=32),
     )
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.models import multimodal as mm
 
     params = mm.init_params(cfg, jax.random.PRNGKey(0))
 
@@ -92,7 +92,7 @@ def test_eval_hook_runs(tiny):
         aggregate=lambda rows: {"acc": 0.0},
     ))
     # monkeypatch load_docs to return synthetic docs
-    from lavida_mod_tpu.eval import tasks as T
+    from lavida_mod.eval import tasks as T
 
     T.get_task("_hook_probe").load_docs = lambda *a, **k: docs
 

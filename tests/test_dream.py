@@ -8,10 +8,10 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import DreamGenerationConfig
-from lavida_mod_tpu.generation.dream_sampler import dream_generate
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models.dream import convert_dream_state_dict, tiny_dream_config
+from lavida_mod.config import DreamGenerationConfig
+from lavida_mod.generation.dream_sampler import dream_generate
+from lavida_mod.models import llada as jl
+from lavida_mod.models.dream import convert_dream_state_dict, tiny_dream_config
 
 MASK_ID = 500
 
@@ -270,7 +270,7 @@ def test_dream_step_ratio_and_schedule(tiny_pair):
 def test_dream_schedule_step_ratio_clamped():
     """step_ratio > steps0/max_new_tokens must clamp to steps0 instead of
     indexing the (steps0+1)-entry timestep grid out of bounds."""
-    from lavida_mod_tpu.generation.dream_sampler import build_dream_schedule
+    from lavida_mod.generation.dream_sampler import build_dream_schedule
 
     gen = DreamGenerationConfig(
         max_new_tokens=16, steps=4, step_ratio=1.0, alg="maskgit_plus"
@@ -324,7 +324,7 @@ def test_dream_mixed_act_int8_prefill_runs(tiny_pair):
     """int8-quantized prefill tree + A8 prefill completes and fills every
     masked position (tokens may differ from bf16 — weight quantization —
     so this checks the contract, not token parity)."""
-    from lavida_mod_tpu.models.llada import quantize_params
+    from lavida_mod.models.llada import quantize_params
 
     _, cfg, params = tiny_pair
     prompt = np.arange(3, 13)[None]
@@ -342,7 +342,7 @@ def test_dream_mixed_act_int8_prefill_runs(tiny_pair):
 
 
 def test_dream_mixed_rejects_hooks():
-    from lavida_mod_tpu.models.dream import tiny_dream_config
+    from lavida_mod.models.dream import tiny_dream_config
 
     cfg = tiny_dream_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))

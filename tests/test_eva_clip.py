@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.models import eva_clip as E
+from lavida_mod.models import eva_clip as E
 
 
 def _stub_timm():
@@ -102,7 +102,7 @@ def test_eva_postnorm_layerscale(reference_llava):
 
 
 def test_tower_builder_dispatch():
-    from lavida_mod_tpu.models.tower_builder import build_vision_tower
+    from lavida_mod.models.tower_builder import build_vision_tower
 
     cfg, fwd = build_vision_tower("eva-clip-8b",
                                   cfg=E.tiny_eva_config())

@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from lavida_mod_tpu.eval import metrics as M
-from lavida_mod_tpu.eval.adapter import LavidaEvalModel, gen_kwargs_to_config
-from lavida_mod_tpu.eval.evaluator import evaluate
-from lavida_mod_tpu.eval.tasks import Task, get_task, list_tasks
+from lavida_mod.eval import metrics as M
+from lavida_mod.eval.adapter import LavidaEvalModel, gen_kwargs_to_config
+from lavida_mod.eval.evaluator import evaluate
+from lavida_mod.eval.tasks import Task, get_task, list_tasks
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +120,10 @@ class FakeTokenizer:
 def tiny_eval_model():
     import jax
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.models.lavida import LaViDa
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
@@ -201,7 +201,7 @@ def test_jsonl_doc_loading(tmp_path):
 
 def test_evaluate_multiple_choice_loglikelihood(tiny_eval_model):
     """MC loglikelihood protocol: all choices scored, argmax predicted."""
-    from lavida_mod_tpu.eval.evaluator import evaluate
+    from lavida_mod.eval.evaluator import evaluate
 
     docs = _synth_docs(2)
     for d in docs:
@@ -223,7 +223,7 @@ def test_evaluate_multiple_choice_loglikelihood(tiny_eval_model):
 
 def test_evaluate_batched_generation(tiny_eval_model):
     """Batched path scores the same docs; predictions are per-doc."""
-    from lavida_mod_tpu.eval.evaluator import evaluate
+    from lavida_mod.eval.evaluator import evaluate
 
     task = Task(
         name="synthetic_batched",
@@ -240,7 +240,7 @@ def test_evaluate_batched_generation_chunked_route(tiny_eval_model):
     """batch_size > 4 routes through generate_chunked_prefill (the
     monolithic B>4 prefill graph blows XLA's compile budget at 8B) with
     the front-padded prefix_valid mask; predictions stay per-doc."""
-    from lavida_mod_tpu.eval.evaluator import evaluate
+    from lavida_mod.eval.evaluator import evaluate
 
     task = Task(
         name="synthetic_batched6",
@@ -305,7 +305,7 @@ def test_video_generate_and_evaluate(tiny_eval_model, tmp_path):
     per-doc and the batched evaluator loops."""
     from PIL import Image
 
-    from lavida_mod_tpu.eval.evaluator import evaluate
+    from lavida_mod.eval.evaluator import evaluate
 
     frames = [Image.fromarray(
         np.full((40, 40, 3), i * 25, np.uint8)) for i in range(3)]
@@ -352,7 +352,7 @@ def test_bleu_rouge():
 
 
 def test_doc_normalization():
-    from lavida_mod_tpu.eval.tasks import _normalize_doc
+    from lavida_mod.eval.tasks import _normalize_doc
 
     d = _normalize_doc(
         {"question": "q?", "answer": "a", "options": ["a", "b"]}, 3
@@ -373,7 +373,7 @@ def test_hf_dataset_loading_with_normalization(tmp_path, monkeypatch):
         "question_id": ["q1", "q2"],
     })
 
-    import lavida_mod_tpu.eval.tasks as T
+    import lavida_mod.eval.tasks as T
 
     monkeypatch.setattr(
         "datasets.load_dataset", lambda *a, **k: ds, raising=True
@@ -390,11 +390,11 @@ def test_dream_backend_through_eval_adapter():
     config -> dream sampler); loglikelihood raises like the reference."""
     import jax
 
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_siglip_config,
     )
-    from lavida_mod_tpu.models.dream import tiny_dream_config
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.models.dream import tiny_dream_config
+    from lavida_mod.models.lavida import LaViDa
 
     cfg = LaViDaConfig(
         llada=tiny_dream_config(),
@@ -412,7 +412,7 @@ def test_dream_backend_through_eval_adapter():
 
 
 def test_unknown_conv_template_falls_back():
-    from lavida_mod_tpu.data.conversation import get_conv_template
+    from lavida_mod.data.conversation import get_conv_template
 
     with pytest.warns(UserWarning):
         conv = get_conv_template("nonexistent")
@@ -424,7 +424,7 @@ def test_unknown_conv_template_falls_back():
 # ---------------------------------------------------------------------------
 
 def test_mmmu_parse_multi_choice_cascade():
-    from lavida_mod_tpu.eval import filters as F
+    from lavida_mod.eval import filters as F
 
     i2a, choices = F.get_multi_choice_info(["cat", "dog", "bird", "fish"])
     assert choices == ["A", "B", "C", "D"] and i2a["C"] == "bird"
@@ -447,7 +447,7 @@ def test_mmmu_parse_multi_choice_cascade():
 
 
 def test_mmmu_open_response_and_eval_open():
-    from lavida_mod_tpu.eval import filters as F
+    from lavida_mod.eval import filters as F
 
     preds = F.parse_open_response("The total is computed. Therefore the answer is 1,234")
     assert 1234.0 in preds
@@ -459,7 +459,7 @@ def test_mmmu_open_response_and_eval_open():
 
 
 def test_mme_parse_and_aggregate():
-    from lavida_mod_tpu.eval import filters as F
+    from lavida_mod.eval import filters as F
 
     assert F.mme_parse_pred_ans("Yes.") == "yes"
     assert F.mme_parse_pred_ans("no") == "no"
@@ -483,7 +483,7 @@ def test_mme_parse_and_aggregate():
 
 
 def test_filter_stack():
-    from lavida_mod_tpu.eval import filters as F
+    from lavida_mod.eval import filters as F
 
     docs = [{"choices": ["red", "green", "blue"]}]
     ens = F.FilterEnsemble("mc", [
@@ -503,7 +503,7 @@ def test_mmmu_doc_pipeline_multi_image_and_choices():
     """_normalize_doc + _mmmu_map: stringified options interpolate into the
     prompt as an A./B. block (reference construct_prompt) and image_1..N
     slots are collected in order."""
-    from lavida_mod_tpu.eval.tasks import _normalize_doc, get_task
+    from lavida_mod.eval.tasks import _normalize_doc, get_task
 
     doc = _normalize_doc({
         "question": "What is shown in <image 1> and <image 2>?",
@@ -535,7 +535,7 @@ def test_cider_d_matches_pycocoevalcap_transcription():
     import random
     from collections import defaultdict
 
-    from lavida_mod_tpu.eval.metrics import cider_d, normalize_caption
+    from lavida_mod.eval.metrics import cider_d, normalize_caption
 
     def oracle(cands, refs_all, n_max=4, sigma=6.0):
         crefs = [[normalize_caption(r) for r in refs] for refs in refs_all]
@@ -612,7 +612,7 @@ def test_cider_d_matches_pycocoevalcap_transcription():
 
 
 def test_evaluation_tracker(tmp_path):
-    from lavida_mod_tpu.eval.tracker import EvaluationTracker, WandbLogger
+    from lavida_mod.eval.tracker import EvaluationTracker, WandbLogger
 
     tr = EvaluationTracker(str(tmp_path), model_name="ckpts/test-model")
     p = tr.save_results_aggregated(
@@ -635,8 +635,8 @@ def test_evaluation_tracker(tmp_path):
 
 
 def test_vqa_accuracy_and_new_tasks():
-    from lavida_mod_tpu.eval import metrics as M
-    from lavida_mod_tpu.eval.tasks import get_task, list_tasks
+    from lavida_mod.eval import metrics as M
+    from lavida_mod.eval.tasks import get_task, list_tasks
 
     # official leave-one-out protocol: 10 annotators, 7 say "2"
     answers = ["two", "2", "2", "two", "3", "2", "2", "two", "2", "2"]
@@ -665,7 +665,7 @@ def test_vqa_accuracy_and_new_tasks():
 
 
 def test_allgather_rows_and_mme_dedup():
-    from lavida_mod_tpu.eval.evaluator import allgather_rows, mme_dedup_rows
+    from lavida_mod.eval.evaluator import allgather_rows, mme_dedup_rows
 
     rows = [{"question_id": "a", "score": 1.0}] * 3 + [
         {"question_id": "b", "score": 0.0}]

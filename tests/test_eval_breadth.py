@@ -2,9 +2,9 @@
 wiring, and per-family scoring behavior (reference
 eval/lmms_eval/tasks/* semantics; citations in tasks_ext.py)."""
 
-from lavida_mod_tpu.eval import filters as F
-from lavida_mod_tpu.eval import metrics as M
-from lavida_mod_tpu.eval.tasks import Task, get_task, list_tasks
+from lavida_mod.eval import filters as F
+from lavida_mod.eval import metrics as M
+from lavida_mod.eval.tasks import Task, get_task, list_tasks
 
 
 def test_breadth_tasks_registered():
@@ -228,7 +228,7 @@ def test_hellaswag_loglikelihood_protocol():
 
 def test_filter_ensemble_wired_through_evaluate():
     """The evaluator applies task.filter_ensemble before scoring."""
-    from lavida_mod_tpu.eval.evaluator import evaluate
+    from lavida_mod.eval.evaluator import evaluate
 
     class FakeModel:
         avg_latency = 0.0
@@ -272,7 +272,7 @@ def test_refcoco_rec_pipeline():
 
 
 def test_ifeval_verifiers():
-    from lavida_mod_tpu.eval import ifeval as IF
+    from lavida_mod.eval import ifeval as IF
 
     assert IF.check_instruction("punctuation:no_comma", "no commas here",
                                 {})
@@ -307,7 +307,7 @@ def test_ifeval_verifiers():
 
 
 def test_ifeval_strict_vs_loose():
-    from lavida_mod_tpu.eval import ifeval as IF
+    from lavida_mod.eval import ifeval as IF
 
     doc = {"instruction_id_list": ["change_case:english_lowercase"],
            "kwargs": [{}]}
@@ -355,8 +355,8 @@ def test_charades_temporal_iou():
 # ---------------------------------------------------------------------------
 
 def test_round3_families_registered():
-    import lavida_mod_tpu.eval.tasks_ext as TE
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    import lavida_mod.eval.tasks_ext as TE
+    from lavida_mod.eval.tasks import _TASKS
 
     for name in ("vcr_wiki_en_easy", "vcr_wiki_zh_hard", "conbench",
                  "jmmmu", "livexiv_tqa", "livexiv_vqa", "av_odyssey",
@@ -370,7 +370,7 @@ def test_round3_families_registered():
 
 
 def test_vcr_scoring():
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    from lavida_mod.eval.tasks import _TASKS
 
     t = _TASKS["vcr_wiki_en_easy"]
     doc = {"crossed_text": ["hello world"], "target": "hello world"}
@@ -386,7 +386,7 @@ def test_vcr_scoring():
 
 
 def test_conbench_consistency_aggregate():
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    from lavida_mod.eval.tasks import _TASKS
 
     t = _TASKS["conbench"]
     rows = []
@@ -409,7 +409,7 @@ def test_conbench_consistency_aggregate():
 
 
 def test_livexiv_parse():
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    from lavida_mod.eval.tasks import _TASKS
 
     t = _TASKS["livexiv_tqa"]
     assert t.score_doc({"gt": "B"}, "B")["acc"] == 1.0
@@ -421,7 +421,7 @@ def test_livexiv_parse():
 
 
 def test_av_odyssey_parse_and_agg():
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    from lavida_mod.eval.tasks import _TASKS
 
     t = _TASKS["av_odyssey"]
     doc = {"options": ["A. red", "B. blue", "C. green", "D. gray"],
@@ -435,7 +435,7 @@ def test_av_odyssey_parse_and_agg():
 
 
 def test_jmmmu_prompt_construction():
-    from lavida_mod_tpu.eval.tasks import _TASKS
+    from lavida_mod.eval.tasks import _TASKS
 
     t = _TASKS["jmmmu"]
     d = t.doc_mapper({"question": "<image1> これは何ですか？",

@@ -14,7 +14,7 @@ import types
 
 import pytest
 
-from lavida_mod_tpu.eval import filters as F
+from lavida_mod.eval import filters as F
 
 
 @pytest.fixture(scope="module")

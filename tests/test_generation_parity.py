@@ -14,10 +14,10 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-from lavida_mod_tpu.generation import generate
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models.llada_loader import convert_state_dict
+from lavida_mod.config import GenerationConfig, tiny_llada_config
+from lavida_mod.generation import generate
+from lavida_mod.models import llada as jl
+from lavida_mod.models.llada_loader import convert_state_dict
 
 from test_llada_parity import _make_ref_model  # shared tiny fixture
 
@@ -301,10 +301,10 @@ def test_lavida_prefill_params_surface(tiny_pair):
     (weight quantization may change tokens; the contract is exercised
     end-to-end the way predict.py --mixed builds it)."""
     _, cfg, params = tiny_pair
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_siglip_config,
     )
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.models.lavida import LaViDa
 
     vcfg = LaViDaConfig(
         llada=cfg,

@@ -14,9 +14,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import LaViDaConfig, tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.train.step import (
+from lavida_mod.config import LaViDaConfig, tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.train.step import (
     jit_train_step, make_freeze_optimizer, make_optimizer, make_train_step,
 )
 
@@ -142,7 +142,7 @@ def test_train_step_with_accum_updates_on_boundary_only():
 def test_accum_opt_state_orbax_roundtrip(tmp_path):
     """Resume: MultiSteps state (mini_step counter + acc_grads) must survive
     save_checkpoint/restore_checkpoint bit-exactly mid-accumulation."""
-    from lavida_mod_tpu.utils import restore_checkpoint, save_checkpoint
+    from lavida_mod.utils import restore_checkpoint, save_checkpoint
 
     params = _toy_params(jax.random.PRNGKey(4))
     opt = make_optimizer(lr=1e-2, total_steps=10, grad_accum=2)

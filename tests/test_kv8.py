@@ -1,5 +1,6 @@
-"""int8 KV cache decode: kernel parity (interpret mode) and end-to-end
-generation through the kv8 path."""
+"""int8/int4 KV cache decode: attention over the quantized cache vs
+dense attention over the dequantized cache, and end-to-end generation
+through the kv8 path."""
 
 import numpy as np
 import pytest
@@ -7,18 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-from lavida_mod_tpu.generation.diffusion import generate
-from lavida_mod_tpu.models import llada as L
-from lavida_mod_tpu.ops import kv8_attention as KV8
-from lavida_mod_tpu.ops.attention import dense_attention
-
-
-@pytest.fixture(autouse=True)
-def _interpret():
-    KV8._INTERPRET[0] = True
-    yield
-    KV8._INTERPRET[0] = False
+from lavida_mod.config import GenerationConfig, tiny_llada_config
+from lavida_mod.generation.diffusion import generate
+from lavida_mod.models import llada as L
+from lavida_mod.ops import kv8_attention as KV8
+from lavida_mod.ops.attention import (dense_attention, make_mask,
+                                      mask_to_bias)
 
 
 def test_quantize_roundtrip():
@@ -44,8 +39,8 @@ def test_kernel_matches_dense_on_dequant():
     out = KV8.kv8_decode_attention(q, k8, ksc, v8, vsc)
     ref = dense_attention(q, KV8.dequantize_kv(k8, ksc).astype(jnp.float32),
                           KV8.dequantize_kv(v8, vsc).astype(jnp.float32))
-    # kernel computes the p*v dot in bf16 (serving dtype); tolerance is
-    # bf16 rounding, not quantization error (that's factored out here)
+    # tolerance is f32 summation order, not quantization error (that's
+    # factored out here)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=6e-3, rtol=6e-3)
 
@@ -61,11 +56,10 @@ def test_kernel_respects_kv_valid():
     v8, vsc = KV8.quantize_kv(v)
     out = KV8.kv8_decode_attention(q, k8, ksc, v8, vsc, kv_valid=valid)
     # zero out the invalid tail on the dequantized reference via a bias
-    from lavida_mod_tpu.ops.attention import make_bias
     ref = dense_attention(
         q, KV8.dequantize_kv(k8, ksc).astype(jnp.float32),
         KV8.dequantize_kv(v8, vsc).astype(jnp.float32),
-        bias=make_bias(kv_valid=valid))
+        bias=mask_to_bias(make_mask(kv_valid=valid)))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=6e-3, rtol=6e-3)
 
@@ -115,7 +109,7 @@ def test_quantize_kv4_roundtrip():
 
 
 def test_kv4_kernel_matches_dense_on_dequant():
-    """int4 cache through the SAME kernel (astype handles S4): parity vs
+    """int4 cache through the SAME code (astype handles S4): parity vs
     dense attention over the dequantized values."""
     B, T, H, hd, S = 1, 16, 2, 128, 96
     ks = jax.random.split(jax.random.PRNGKey(8), 3)
@@ -184,3 +178,29 @@ def test_generate_kv8_gqa_end_to_end():
     assert (x_kv8 != cfg.mask_token_id).all()
     agree = (x_ref == x_kv8).mean()
     assert agree >= 0.8, f"kv8 GQA trajectory diverged: {agree:.2f}"
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (28, 4)])
+def test_kv_quant_attention_matches_dequant_dense(bits, Hq, Hkv):
+    """kv8/kv4 attention == dense attention over dequantize_kv, with a
+    key-padding mask, for MHA, GQA and Dream's 28/4 grouping, at a cache
+    length that is no multiple of 128."""
+    B, T, hd, S = 2, 16, 64, 75
+    G = Hq // Hkv
+    ks = jax.random.split(jax.random.PRNGKey(Hq + bits), 3)
+    q = jax.random.normal(ks[0], (B, T, Hq, hd), jnp.float32)
+    k = jax.random.normal(ks[1], (B, S, Hkv, hd), jnp.float32)
+    v = jax.random.normal(ks[2], (B, S, Hkv, hd), jnp.float32)
+    valid = jnp.arange(S)[None] >= jnp.asarray([[0], [11]])
+    k8, ksc = KV8.quantize_kv(k, bits)
+    v8, vsc = KV8.quantize_kv(v, bits)
+    out = KV8.kv8_decode_attention(q, k8, ksc, v8, vsc, kv_valid=valid)
+    kd = KV8.dequantize_kv(k8, ksc)
+    vd = KV8.dequantize_kv(v8, vsc)
+    with jax.default_matmul_precision("highest"):
+        ref = dense_attention(q, jnp.repeat(kd, G, axis=2),
+                              jnp.repeat(vd, G, axis=2),
+                              bias=mask_to_bias(make_mask(kv_valid=valid)))
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               atol=2e-5, rtol=2e-5)

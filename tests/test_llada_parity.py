@@ -13,9 +13,9 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models.llada_loader import convert_state_dict
+from lavida_mod.config import tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.models.llada_loader import convert_state_dict
 
 ATOL = 2e-4
 
@@ -194,8 +194,8 @@ def test_act_int8_path_close_to_weight_only():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))
@@ -219,8 +219,8 @@ def test_blockwise_attention_matches_dense():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))
@@ -248,9 +248,9 @@ def test_blockwise_long_seq_trains():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import llada as jl
-    from lavida_mod_tpu.train.loss import diffusion_loss
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
+    from lavida_mod.train.loss import diffusion_loss
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))
@@ -286,8 +286,8 @@ def test_resize_token_embeddings():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))
@@ -319,9 +319,9 @@ def test_bf16_logit_parity(reference_llada):
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import llada as jl
-    from lavida_mod_tpu.models.llada_loader import convert_state_dict
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
+    from lavida_mod.models.llada_loader import convert_state_dict
 
     model, cfg_kw = _make_ref_model(reference_llada)
     model = model.to(torch.bfloat16)
@@ -353,9 +353,9 @@ def test_fused_layout_equivalence():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-    from lavida_mod_tpu.generation import generate
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import GenerationConfig, tiny_llada_config
+    from lavida_mod.generation import generate
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))
@@ -385,9 +385,9 @@ def test_fused_layout_int4_token_exact():
     import jax
     import jax.numpy as jnp
 
-    from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-    from lavida_mod_tpu.generation import generate
-    from lavida_mod_tpu.models import llada as jl
+    from lavida_mod.config import GenerationConfig, tiny_llada_config
+    from lavida_mod.generation import generate
+    from lavida_mod.models import llada as jl
 
     cfg = tiny_llada_config(d_model=128, n_heads=4, n_kv_heads=4,
                             mlp_hidden_size=256)

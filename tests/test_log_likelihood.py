@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import tiny_llada_config
-from lavida_mod_tpu.generation.log_likelihood import _mc_round, get_log_likelihood
-from lavida_mod_tpu.models import llada as jl
+from lavida_mod.config import tiny_llada_config
+from lavida_mod.generation.log_likelihood import _mc_round, get_log_likelihood
+from lavida_mod.models import llada as jl
 
 
 @pytest.fixture(scope="module")
@@ -86,9 +86,9 @@ def test_ranking_prefers_trained_continuation(tiny):
 
 
 def _quant_cfg():
-    from lavida_mod_tpu.config import LLaDAConfig
+    from lavida_mod.config import LLaDAConfig
 
-    # 512-divisible geometry the W4 kernel plan accepts (test_w4_fused)
+    # a sequential-block (fused layout) geometry for the int4/int8 trees
     return LLaDAConfig(
         d_model=512, n_heads=4, n_layers=2, mlp_hidden_size=1024,
         block_type="sequential", activation="swiglu",
@@ -121,7 +121,7 @@ def test_mc_round_forward_chunking_is_exact(tiny):
     forward bit-for-bit in f32 tolerance: rows are attention-independent,
     chunking only bounds the live activation set (the OOM fix for MMMU
     geometry over the fused-int4 layout)."""
-    from lavida_mod_tpu.generation.log_likelihood import _mc_round
+    from lavida_mod.generation.log_likelihood import _mc_round
 
     cfg, params, prefix = tiny
     answer = jnp.asarray(np.random.default_rng(1).integers(5, 500, size=8))
@@ -134,8 +134,8 @@ def test_mc_round_forward_chunking_is_exact(tiny):
 
 
 def test_loglikelihood_act_int8_knob_tracks_weight_only():
-    """The opt-in W8A8 knob (act_int8=True, the 2x-MXU-rate prefill
-    kernels) must track the weight-only int8 estimate within the
+    """The opt-in W8A8 knob (act_int8=True, the int8-GEMM prefill
+    linears) must track the weight-only int8 estimate within the
     documented ~0.5% activation-quant band — same key, same masks."""
     cfg = _quant_cfg()
     params = jl.init_params(cfg, jax.random.PRNGKey(0), jnp.bfloat16)
@@ -159,7 +159,7 @@ def test_loglikelihood_fused_int4_self_consistent():
     cancels — both sides run the same kernels).  Starts from llama-block
     params because to_fused_layout converts llama -> fused-sequential —
     exactly the 8B serving sequence (`eval --quant int4/mixed`)."""
-    from lavida_mod_tpu.config import LLaDAConfig
+    from lavida_mod.config import LLaDAConfig
 
     cfg = LLaDAConfig(
         d_model=512, n_heads=4, n_layers=2, mlp_hidden_size=1024,
@@ -198,7 +198,7 @@ def test_adapter_loglikelihood_uses_prefill_tree_when_mixed():
     """Mixed serving: loglikelihood is compute-bound (mc_num full
     forwards), so the adapter must ride the int8 prefill tree, not the
     int4 decode tree (adapter.py loglikelihood)."""
-    from lavida_mod_tpu.eval import adapter as adapter_mod
+    from lavida_mod.eval import adapter as adapter_mod
 
     class FakeModel:
         lm_family = "llada"

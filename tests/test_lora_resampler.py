@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
 )
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models import multimodal as mm
-from lavida_mod_tpu.models import resampler as R
-from lavida_mod_tpu.train.lora import (
+from lavida_mod.models import llada as jl
+from lavida_mod.models import multimodal as mm
+from lavida_mod.models import resampler as R
+from lavida_mod.train.lora import (
     SHIRG_LORA_TARGETS, add_lora, load_lora_state, make_lora_optimizer,
     merge_lora, split_lora_state,
 )
@@ -63,7 +63,7 @@ def test_lora_changes_output_when_b_nonzero_and_merge_matches(tiny):
 
 
 def _linears(tree):
-    from lavida_mod_tpu.train.lora import _iter_linears
+    from lavida_mod.train.lora import _iter_linears
 
     return list(_iter_linears(tree))
 

@@ -13,8 +13,8 @@ import types
 
 import pytest
 
-from lavida_mod_tpu.eval import filters as F
-from lavida_mod_tpu.eval import metrics as M
+from lavida_mod.eval import filters as F
+from lavida_mod.eval import metrics as M
 
 
 def _load(path, name, extra_stubs=(), extra_modules=None):
@@ -141,7 +141,7 @@ def test_vqav2_accuracy_matches_reference():
 
 def test_pope_scoring_matches_reference():
     ref = _load(f"{REF}/tasks/pope/utils.py", "ref_pope")
-    from lavida_mod_tpu.eval.tasks import _pope_score
+    from lavida_mod.eval.tasks import _pope_score
 
     preds = ["yes", "Yes.", "no", "Yes, it is.", "NO", "maybe", "yes"]
     gts = ["yes", "yes", "no", "no", "yes", "no", "no"]
@@ -202,7 +202,7 @@ def test_ai2d_scienceqa_doc_pipeline_matches_reference():
         extra_modules={"lmms_eval.filters.extraction": filt,
                        "lmms_eval.filters.transformation": trans})
     ref_sqa = _load(f"{REF}/tasks/scienceqa/utils.py", "ref_sqa")
-    from lavida_mod_tpu.eval.tasks import get_task
+    from lavida_mod.eval.tasks import get_task
 
     # ai2d: prompt interpolation + index->letter target
     doc = {"question": "Which part is the root?",
@@ -253,7 +253,7 @@ def test_realworldqa_scoring_matches_reference():
         extra_stubs=("lmms_eval.filters",),
         extra_modules={"lmms_eval.filters.extraction": filt,
                        "lmms_eval.filters.transformation": trans})
-    from lavida_mod_tpu.eval.tasks import get_task
+    from lavida_mod.eval.tasks import get_task
 
     t = get_task("realworldqa")
     for pred, gt in (("A.", "a"), ("two", "two"), ("Two.", "two"),
@@ -272,7 +272,7 @@ def test_mmmu_prompt_matches_reference_construct_prompt():
                 extra_stubs=("requests",),
                 extra_modules={"openai": _openai_stub(),
                                "yaml": __import__("yaml")})
-    from lavida_mod_tpu.eval.tasks import get_task
+    from lavida_mod.eval.tasks import get_task
 
     t = get_task("mmmu_val")
     mc_prompt = "Answer with the option's letter from the given choices directly."
@@ -313,7 +313,7 @@ def test_mmbench_prompt_matches_reference():
     evals = _load(f"{REF}/tasks/mmbench/mmbench_evals.py", "ref_mmb_ev")
 
     ev = evals.MMBench_Evaluator()
-    from lavida_mod_tpu.eval.tasks import get_task
+    from lavida_mod.eval.tasks import get_task
 
     t = get_task("mmbench_en_dev")
     doc = {"question": "What is shown?", "hint": "A chart about pets.",

@@ -23,11 +23,11 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
 )
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.train.step import (
+from lavida_mod.models import llada as jl
+from lavida_mod.train.step import (
     cast_floating, jit_train_step, make_freeze_optimizer, make_optimizer,
     make_train_step, make_multimodal_train_step, multi_steps_f32,
 )
@@ -180,7 +180,7 @@ def test_multi_steps_f32_accumulates_f32_with_bf16_params():
 
 
 def test_trajectory_divergence_bf16_vs_mixed():
-    """VERDICT round-4 item 1: N steps at a training-realistic relative LR,
+    """N steps at a training-realistic relative LR,
     fixed seeds — the bf16-everything trajectory measurably diverges from
     the f32-master trajectory (rounding accumulates), while the f32 master
     trajectory equals itself re-run (determinism guard)."""
@@ -218,11 +218,11 @@ def test_trajectory_divergence_bf16_vs_mixed():
 
 
 def test_multimodal_sharded_mixed_tower_grads_flow():
-    """VERDICT round-4 item 2a: the stage-2 multimodal step (pixels ->
+    """The stage-2 multimodal step (pixels ->
     SigLIP -> splice -> loss) under a (dp, fsdp, tp) mesh with f32 masters
     + bf16 compute; tower params must move (tower LR group live)."""
-    from lavida_mod_tpu.models import multimodal as mm
-    from lavida_mod_tpu.parallel import make_mesh, shard_params
+    from lavida_mod.models import multimodal as mm
+    from lavida_mod.parallel import make_mesh, shard_params
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),

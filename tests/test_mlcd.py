@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import SigLIPConfig
-from lavida_mod_tpu.models import mlcd
+from lavida_mod.config import SigLIPConfig
+from lavida_mod.models import mlcd
 
 
 def tiny_cfg():
@@ -88,7 +88,7 @@ def test_mlcd_random_init_runs():
 def test_tower_builder_dispatch(tmp_path):
     import json
 
-    from lavida_mod_tpu.models.tower_builder import build_vision_tower
+    from lavida_mod.models.tower_builder import build_vision_tower
 
     cfg, fwd = build_vision_tower("mlcd-vit-large-patch14-336")
     assert cfg.hidden_size == 1024 and fwd.__module__.endswith("mlcd")

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models.moe import init_moe_params, load_balancing_loss, moe_ff
+from lavida_mod.config import tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.models.moe import init_moe_params, load_balancing_loss, moe_ff
 
 
 def test_moe_single_expert_equals_dense():
@@ -46,7 +46,7 @@ def test_moe_topk_weights_renormalized():
 def test_moe_in_core_forward_and_ar_decode():
     """Blocks carrying a "moe" entry run through the shared core and the AR
     sampler."""
-    from lavida_mod_tpu.generation.ar_sampler import ar_generate_fused
+    from lavida_mod.generation.ar_sampler import ar_generate_fused
 
     cfg = tiny_llada_config()
     params = jl.init_params(cfg, jax.random.PRNGKey(0))

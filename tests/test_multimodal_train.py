@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
 )
-from lavida_mod_tpu.models import multimodal as mm
-from lavida_mod_tpu.train.step import (
+from lavida_mod.models import multimodal as mm
+from lavida_mod.train.step import (
     jit_train_step, make_freeze_optimizer, make_multimodal_train_step,
 )
 
@@ -34,7 +34,7 @@ def _mk_batch(cfg, with_labels=True):
     sizes = [(100, 60), (60, 100)]
     n_views = []
     pix = []
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod.data.anyres import anyres_grid_shape
 
     for s in sizes:
         nw, nh = anyres_grid_shape(s, cfg.vision.grid_pinpoints, 56)
@@ -151,7 +151,7 @@ def test_multimodal_train_step_full(setup):
 def test_multi_image_gather_plan(setup):
     """Two images in one sample: both -200 markers spliced in order."""
     cfg, params = setup
-    from lavida_mod_tpu.data.anyres import anyres_grid_shape
+    from lavida_mod.data.anyres import anyres_grid_shape
 
     rng = np.random.default_rng(2)
     sizes = [(100, 60), (56, 56)]

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lavida_mod_tpu.data.native import (
+from lavida_mod.data.native import (
     FILTER_BICUBIC, FILTER_BILINEAR, FILTER_LANCZOS,
     native_available, prep_pad_view_native, prep_view_native,
 )
@@ -36,7 +36,7 @@ def test_resample_matches_pil(filter_id, pil_name):
 
 
 def test_pad_view_geometry():
-    from lavida_mod_tpu.data.anyres import fit_within
+    from lavida_mod.data.anyres import fit_within
 
     rng = np.random.default_rng(1)
     img = rng.integers(0, 255, (300, 500, 3), dtype=np.uint8)

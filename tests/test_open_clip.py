@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from lavida_mod_tpu.models import open_clip as oc  # noqa: E402
+from lavida_mod.models import open_clip as oc  # noqa: E402
 
 
 class _QuickGELU(torch.nn.Module):
@@ -146,7 +146,7 @@ def test_imagebind_parity_final_layer():
 
 
 def test_tower_builder_dispatch():
-    from lavida_mod_tpu.models.tower_builder import build_vision_tower
+    from lavida_mod.models.tower_builder import build_vision_tower
 
     cfg, fwd = build_vision_tower("open_clip_hub:ViT-H-14-378-quickgelu")
     assert cfg.hidden_size == 1280 and cfg.image_size == 378

@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.models.qformer import (
+from lavida_mod.models.qformer import (
     QformerConfig, apply, convert_qformer_state_dict, init_params,
 )
 

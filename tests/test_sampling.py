@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lavida_mod_tpu.ops import sampling as P
+from lavida_mod.ops import sampling as P
 
 
 def test_topk_transfer_mask_matches_topk():

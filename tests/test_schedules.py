@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from lavida_mod_tpu.ops import schedules as S
+from lavida_mod.ops import schedules as S
 
 
 def _reference_scheduled(mask_counts, steps, schedule, shift=3.0):

@@ -2,7 +2,7 @@
 
 import time
 
-from lavida_mod_tpu.serve.controller import Controller, WorkerInfo
+from lavida_mod.serve.controller import Controller, WorkerInfo
 
 
 def _mk(ctrl, name, queue, speed=1.0, models=("m",)):

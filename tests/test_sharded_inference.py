@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import GenerationConfig, tiny_llada_config
-from lavida_mod_tpu.generation import generate
-from lavida_mod_tpu.generation.ar_sampler import ar_generate_fused
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.parallel import make_mesh, shard_params
+from lavida_mod.config import GenerationConfig, tiny_llada_config
+from lavida_mod.generation import generate
+from lavida_mod.generation.ar_sampler import ar_generate_fused
+from lavida_mod.models import llada as jl
+from lavida_mod.parallel import make_mesh, shard_params
 
 
 @pytest.fixture(scope="module")
@@ -69,12 +69,12 @@ def test_sharded_ar_decode_matches(tiny):
 def test_lavida_shard_method_multimodal_parity():
     """The CLI surface behind predict.py/worker/eval `--tp`: LaViDa.shard
     places the whole composed tree (tower + projector + LM) on a tp mesh
-    and model.generate must stay token-identical — the bf16 multi-chip
-    serving path (fits a v5e chip from tp=2, _aot_serve_tp AOT table)."""
-    from lavida_mod_tpu.config import (
+    and model.generate must stay token-identical — the bf16 multi-device
+    serving path."""
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_siglip_config,
     )
-    from lavida_mod_tpu.models.lavida import LaViDa
+    from lavida_mod.models.lavida import LaViDa
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
@@ -102,10 +102,9 @@ def test_sharded_batched_chunked_prefill_matches(tiny):
     """Batched serving over the mesh: generate_chunked_prefill (the B>4
     serving route, preallocated merged [B,P+G] KV buffers) with
     GSPMD-sharded serving-layout params must be token-identical to the
-    unsharded run — the multi-chip story behind the bench.py --batch
-    numbers (AOT rows: scripts/probes/_aot_serve_tp.py --batch).
+    unsharded run — the multi-device form of bench.py --batch.
     B=5 exercises the overlapping last chunk."""
-    from lavida_mod_tpu.generation.diffusion import generate_chunked_prefill
+    from lavida_mod.generation.diffusion import generate_chunked_prefill
 
     cfg, params = tiny
     lp = jl.unstack_blocks(params)  # serving layout (list of layers)

@@ -9,10 +9,10 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
 )
-from lavida_mod_tpu.models import shirg as S
+from lavida_mod.models import shirg as S
 
 
 def _torch_base_scores(tokens):
@@ -159,7 +159,7 @@ def test_shirg_encode_merge_similar_wiring():
 def test_2view_preprocess_geometry():
     from PIL import Image
 
-    from lavida_mod_tpu.data import SigLIPImageProcessor
+    from lavida_mod.data import SigLIPImageProcessor
 
     img = Image.fromarray(
         np.random.default_rng(0).integers(0, 255, (600, 900, 3),
@@ -178,7 +178,7 @@ def test_shirg_encode_end_to_end():
             siglip=tiny_siglip_config(), mm_hidden_size=32,
         ),
     )
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.models import multimodal as mm
 
     params = mm.init_params(cfg, jax.random.PRNGKey(0))
     # tiny geometry: 448-analogue = 8x8 grid -> use 112x112 (8x8 patches)
@@ -191,10 +191,10 @@ def test_shirg_encode_end_to_end():
     assert out.shape == (16 + 64, cfg.llada.d_model)
 
     # feeds generation like any image block
-    from lavida_mod_tpu.config import GenerationConfig
-    from lavida_mod_tpu.generation import generate
-    from lavida_mod_tpu.models import llada as jl
-    from lavida_mod_tpu.models.multimodal import splice_embeddings
+    from lavida_mod.config import GenerationConfig
+    from lavida_mod.generation import generate
+    from lavida_mod.models import llada as jl
+    from lavida_mod.models.multimodal import splice_embeddings
 
     ids = np.array([5, 6, -200, 7, 8])
     embeds, _ = splice_embeddings(params, cfg, ids, [out])

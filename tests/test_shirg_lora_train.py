@@ -13,12 +13,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (LaViDaConfig, VisionConfig,
-                                   tiny_llada_config, tiny_siglip_config)
-from lavida_mod_tpu.models import multimodal as mm
-from lavida_mod_tpu.train.lora import (add_shirg_lora, make_lora_optimizer,
-                                       make_shirg_lora_train_step,
-                                       split_lora_state)
+from lavida_mod.config import (LaViDaConfig, VisionConfig,
+                               tiny_llada_config, tiny_siglip_config)
+from lavida_mod.models import multimodal as mm
+from lavida_mod.train.lora import (add_shirg_lora, make_lora_optimizer,
+                                   make_shirg_lora_train_step,
+                                   split_lora_state)
 
 
 def _tiny():
@@ -64,7 +64,7 @@ def test_shirg_lora_step_moves_only_lora():
     text = rng.integers(3, 400, size=(B, Ttxt)).astype(np.int32)
     n_img = jax.eval_shape(
         lambda p, v: __import__(
-            "lavida_mod_tpu.models.shirg", fromlist=["shirg_encode"]
+            "lavida_mod.models.shirg", fromlist=["shirg_encode"]
         ).shirg_encode(p, cfg, v),
         params, jax.ShapeDtypeStruct((2, 3, S, S), jnp.float32)).shape[0]
     labels = np.concatenate(

@@ -49,7 +49,7 @@ def ckpt_dir(tmp_path_factory):
 def test_pure_bpe_token_exact_vs_tokenizers_runtime(ckpt_dir):
     from tokenizers import Tokenizer
 
-    from lavida_mod_tpu.data.tokenizer import load_pure_bpe
+    from lavida_mod.data.tokenizer import load_pure_bpe
 
     fast = Tokenizer.from_file(os.path.join(ckpt_dir, "tokenizer.json"))
     pure = load_pure_bpe(ckpt_dir)
@@ -69,7 +69,7 @@ def test_pure_bpe_token_exact_vs_tokenizers_runtime(ckpt_dir):
 
 
 def test_load_tokenizer_fast_path_and_roundtrip(ckpt_dir):
-    from lavida_mod_tpu.data.tokenizer import load_tokenizer
+    from lavida_mod.data.tokenizer import load_tokenizer
 
     tok = load_tokenizer(ckpt_dir)
     assert tok.eos_token_id is not None
@@ -86,7 +86,7 @@ def test_load_tokenizer_fast_path_and_roundtrip(ckpt_dir):
 
 
 def test_special_tokens_split(ckpt_dir):
-    from lavida_mod_tpu.data.tokenizer import load_pure_bpe, load_tokenizer
+    from lavida_mod.data.tokenizer import load_pure_bpe, load_tokenizer
 
     pure = load_pure_bpe(ckpt_dir)
     text = "<|im_start|>user\nhey<|im_end|>"
@@ -104,7 +104,7 @@ def test_native_bpe_matches_python_path():
     """The C++ merge engine (csrc/bpe.cpp) must be token-exact vs the
     pure-python _bpe loop on the same tokenizer, and actually be active
     when the toolchain is available."""
-    import lavida_mod_tpu.data.tokenizer as T
+    import lavida_mod.data.tokenizer as T
 
     tok = _mk_tiny_tokenizer() if "_mk_tiny_tokenizer" in dir() else None
     if tok is None:

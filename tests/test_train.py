@@ -10,12 +10,12 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import LaViDaConfig, tiny_llada_config
-from lavida_mod_tpu.models import llada as jl
-from lavida_mod_tpu.models.llada_loader import convert_state_dict
-from lavida_mod_tpu.parallel import batch_spec, make_mesh, param_specs, shard_params
-from lavida_mod_tpu.train.loss import diffusion_loss, forward_process, sample_t
-from lavida_mod_tpu.train.step import jit_train_step, make_optimizer, make_train_step
+from lavida_mod.config import LaViDaConfig, tiny_llada_config
+from lavida_mod.models import llada as jl
+from lavida_mod.models.llada_loader import convert_state_dict
+from lavida_mod.parallel import batch_spec, make_mesh, param_specs, shard_params
+from lavida_mod.train.loss import diffusion_loss, forward_process, sample_t
+from lavida_mod.train.step import jit_train_step, make_optimizer, make_train_step
 
 from test_llada_parity import _make_ref_model
 
@@ -122,8 +122,8 @@ def test_train_step_sharded_runs_and_learns():
 
 
 def test_param_specs_cover_llada_and_composed():
-    from lavida_mod_tpu.config import VisionConfig, tiny_siglip_config
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.config import VisionConfig, tiny_siglip_config
+    from lavida_mod.models import multimodal as mm
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
@@ -283,7 +283,7 @@ def test_ce_chunk_loss_and_grads_exact(tied):
 def test_remat_policy_memory_ladder():
     """Memory-delta assertion for the activation-checkpointing knob.
 
-    The TPU-native intermediate points between whole_layer and no remat
+    The scan-friendly intermediate points between whole_layer and no remat
     are checkpoint POLICIES on the scanned layer (models/llada.py
     _remat_group docstring: the literal one_in_N translation makes
     weight-stack layout copies under lax.scan that can exceed the

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.data.video import (
+from lavida_mod.data.video import (
     frames_to_views, load_video_frames, sample_frame_indices,
 )
 
@@ -39,11 +39,11 @@ def test_load_gif_and_dir(tmp_path):
 
 
 def test_video_encode_path(tmp_path):
-    from lavida_mod_tpu.config import (
+    from lavida_mod.config import (
         LaViDaConfig, VisionConfig, tiny_llada_config, tiny_siglip_config,
     )
-    from lavida_mod_tpu.data import SigLIPImageProcessor
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.data import SigLIPImageProcessor
+    from lavida_mod.models import multimodal as mm
     from PIL import Image
 
     cfg = LaViDaConfig(
@@ -70,7 +70,7 @@ def test_worker_serves_web_ui():
     import time
     import urllib.request
 
-    from lavida_mod_tpu.serve.worker import ModelWorker
+    from lavida_mod.serve.worker import ModelWorker
 
     class FakeEval:
         def generate_until(self, text, images, gen_kwargs=None):
@@ -104,7 +104,7 @@ def test_openai_chat_endpoint():
 
     from PIL import Image
 
-    from lavida_mod_tpu.serve.worker import ModelWorker
+    from lavida_mod.serve.worker import ModelWorker
 
     class FakeEval:
         def generate_until(self, text, images, gen_kwargs=None):
@@ -143,7 +143,7 @@ def test_video_av_path_gated():
     without decord, llava/utils.py:21-23)."""
     import pytest
 
-    from lavida_mod_tpu.data.video import load_video_frames
+    from lavida_mod.data.video import load_video_frames
 
     try:
         import av  # noqa: F401
@@ -156,7 +156,7 @@ def test_video_av_path_gated():
 
 
 def test_register_worker_cli():
-    """`python -m lavida_mod_tpu.serve.register_worker` analogue of the
+    """`python -m lavida_mod.serve.register_worker` analogue of the
     reference's llava/serve/register_worker.py: posts a manual
     registration to a live controller."""
     import sys
@@ -164,8 +164,8 @@ def test_register_worker_cli():
     import time
     from unittest import mock
 
-    from lavida_mod_tpu.serve import register_worker
-    from lavida_mod_tpu.serve.controller import Controller
+    from lavida_mod.serve import register_worker
+    from lavida_mod.serve.controller import Controller
 
     c = Controller()
     t = threading.Thread(target=c.serve, args=("127.0.0.1", 19327),

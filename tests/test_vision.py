@@ -9,16 +9,16 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from lavida_mod_tpu.config import (
+from lavida_mod.config import (
     LaViDaConfig, SigLIPConfig, VisionConfig, tiny_siglip_config,
 )
-from lavida_mod_tpu.data.anyres import (
+from lavida_mod.data.anyres import (
     anyres_grid_shape, divide_to_patches, fit_within, select_best_resolution,
     unpad_slice,
 )
-from lavida_mod_tpu.models import siglip as js
-from lavida_mod_tpu.models.siglip import convert_siglip_state_dict
-from lavida_mod_tpu.ops.pooling import pool_2d
+from lavida_mod.models import siglip as js
+from lavida_mod.models.siglip import convert_siglip_state_dict
+from lavida_mod.ops.pooling import pool_2d
 
 PINPOINTS = [(384, 768), (768, 384), (768, 768), (1152, 384), (384, 1152)]
 
@@ -137,7 +137,7 @@ def test_resize_pad_matches_reference(ref_mm_utils, size):
     best = select_best_resolution(img.size, PINPOINTS)
     ours = np.asarray(
         __import__(
-            "lavida_mod_tpu.data.anyres", fromlist=["resize_and_pad_image"]
+            "lavida_mod.data.anyres", fromlist=["resize_and_pad_image"]
         ).resize_and_pad_image(img, best)
     )
     ref = np.asarray(ref_mm_utils.resize_and_pad_image(img, best))
@@ -177,8 +177,8 @@ def test_unpad_slice_matches_reference_unpad():
 # ---------------------------------------------------------------------------
 
 def test_encode_and_splice_shapes():
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import multimodal as mm
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
@@ -222,8 +222,8 @@ def test_encode_and_splice_shapes():
 def test_square_pad_path_unpooled():
     """The square/pad aspect path must return unpooled tokens with no
     newline (llava_arch.py:700-702: encode_images only)."""
-    from lavida_mod_tpu.config import tiny_llada_config
-    from lavida_mod_tpu.models import multimodal as mm
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import multimodal as mm
 
     cfg = LaViDaConfig(
         llada=tiny_llada_config(),
@@ -247,10 +247,9 @@ def test_square_pad_path_unpooled():
 def test_siglip_int8_tower_parity():
     """quantize_tower + forward(act_int8=True): per-channel int8 weights
     with per-token int8 activations must track the float tower closely
-    (serving option behind bench --vision-int8; the Pallas W8A8 epilogue
-    kernel only engages on TPU — this exercises the XLA twin)."""
-    from lavida_mod_tpu.config import tiny_siglip_config
-    from lavida_mod_tpu.models import siglip
+    (serving option behind bench --vision-int8)."""
+    from lavida_mod.config import tiny_siglip_config
+    from lavida_mod.models import siglip
 
     cfg = tiny_siglip_config()
     p = siglip.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
@@ -272,8 +271,8 @@ def test_tower_casts_pixels_to_param_dtype():
     f32 x bf16 promotion ran the whole serving prefill AND the KV
     cache in f32 — caught on chip as f32[8,1184,32,128] cache buffers
     that OOM'd the B=8 worker graph (_serve_concurrency probe)."""
-    from lavida_mod_tpu.config import tiny_siglip_config
-    from lavida_mod_tpu.models import clip, eva_clip, mlcd, siglip
+    from lavida_mod.config import tiny_siglip_config
+    from lavida_mod.models import clip, eva_clip, mlcd, siglip
 
     cfg = tiny_siglip_config()
     views_f32 = jax.random.normal(
