@@ -45,10 +45,6 @@ def main():
                          "grouped int4 (ops/quant.py); gate quantized "
                          "layouts per checkpoint with "
                          "scripts/verify_checkpoint.py")
-    ap.add_argument("--fused", action="store_true",
-                    help="fused QKV + gate/up weight layout "
-                         "(to_fused_layout): mathematically identical, "
-                         "4 matmuls per block instead of 7")
     fam = ap.add_mutually_exclusive_group()
     fam.add_argument("--dream", action="store_true",
                      help="LaViDa-Dream family (7B Qwen2 geometry, "
@@ -156,25 +152,19 @@ def main():
 
         cfg = LaViDaConfig(llada=dream_7b_config())
 
+    bits = {"bf16": None, "int8": 8, "int4": 4}[args.layout]
     lm_cfg = cfg.llada
-    if args.fused:
-        # the fused cfg is a pure function of the base cfg
-        lm_cfg = cfg.llada.replace(
-            block_type="sequential", activation="swiglu",
-            mlp_hidden_size=2 * cfg.llada.hidden_size,
-        )
 
     def build(k):
         # the serving layout from shapes: every quantizer is plain jnp,
         # so jax.eval_shape traces it without materializing a weight
+        nonlocal lm_cfg
         p = multimodal.init_params(cfg, k, jnp.bfloat16)
         lm = llada_model.unstack_blocks(p["llada"])
-        if args.fused:
-            lm, _ = llada_model.to_fused_layout(lm, cfg.llada)
+        lm, lm_cfg = llada_model.serving_block_layout(lm, cfg.llada, bits)
         pre = llada_model.quantize_params(lm, bits=8) if args.mixed else {}
-        if args.layout != "bf16":
-            lm = llada_model.quantize_params(
-                lm, bits=4 if args.layout == "int4" else 8)
+        if bits:
+            lm = llada_model.quantize_params(lm, bits=bits)
         p["llada"] = lm
         if args.vision_int8:
             p["siglip"] = siglip_model.quantize_tower(p["siglip"])
@@ -340,7 +330,6 @@ def main():
             (f"s_per_image_{tag}_hd" if B == 1
              else f"s_per_image_{tag}_hd_batch{B}")
             + f"_{args.layout}"
-            + ("_fused" if args.fused else "")
             + ("_mixed" if args.mixed else "")
             + ("_v8" if args.vision_int8 else "")
             + ("_kv4" if args.kv8 == 4 else "_kv8" if args.kv8 else "")

@@ -311,7 +311,7 @@ def phase_serving(seed, cfg=None, size=(640, 640)):
     ok = _serve(model, cfg, reqs, batch, "bf16", seed)
 
     t0 = time.perf_counter()
-    model.to_serving_layout(quant="int4", fuse=True)
+    model.to_serving_layout(quant="int4")
     jax.block_until_ready(jax.tree.leaves(model.params))
     print(f"  int4 serving layout (fused q/k/v, gate/up): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -388,7 +388,7 @@ def _train_steps(cfg, mesh, params_fn, batch, steps, compute_dtype):
 
 def phase_four(seed, full=None, T=512):
     """full None = LaViDa-LLaDA 8B + SigLIP so400m; the parity runs keep
-    its widths at 2 LLaDA layers and 2 SigLIP layers."""
+    its widths at 2 LLaDA layers and 3 SigLIP layers."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -410,8 +410,10 @@ def phase_four(seed, full=None, T=512):
     def f32_init(cfg):
         return lambda k: mm.init_params(cfg, k, jnp.float32)
 
-    print("  reduced depth (LLaDA 2 layers, SigLIP 2 of 3 layers), full "
-          "widths; f32, matmul precision 'highest'", flush=True)
+    print(f"  reduced depth (LLaDA {small.llada.n_layers} layers, SigLIP "
+          f"{small.vision.siglip.n_layers_used} of "
+          f"{small.vision.siglip.num_hidden_layers} layers), full widths; "
+          f"f32, matmul precision 'highest'", flush=True)
     # only the order of sums differs between one card and a mesh
     tol = 1e-3
     with jax.default_matmul_precision("highest"):

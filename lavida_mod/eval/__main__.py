@@ -102,11 +102,7 @@ def main():
             # (LaViDa.shard)
             model.shard(tp=args.tp)
         else:
-            # fuse=True: eval generation lengths are task-dependent and
-            # unknown up-front; the fused layout is token-exact, its
-            # kernels self-disengage on fat decode tiles (rows > 32)
-            model.to_serving_layout(quant=args.quant,
-                                    fuse=args.quant in ("int4", "mixed"))
+            model.to_serving_layout(quant=args.quant)
         from lavida_mod.data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)

@@ -277,35 +277,32 @@ class LaViDa:
             params = jax.device_put(params, jax.devices("cpu")[0])
         return cls(cfg, params, lm_family)
 
-    def to_serving_layout(self, quant: str = "int8",
-                          fuse: bool = False) -> "LaViDa":
+    def to_serving_layout(self, quant: str = "int8") -> "LaViDa":
         """Quantize the LM into the serving layout and ship it to the
         device — the sequence every serving CLI runs after
         `load(host_staging=True)`:
 
-          unstack -> (fuse: fused QKV+gate/up layout, token-exact) ->
-          (mixed: int8 prefill tree, quantized BEFORE the consuming
-          pass frees the bf16 kernels) -> consuming int4/int8 quantize
-          -> to_device.
+          unstack -> block layout (llada.serving_block_layout: int4
+          fuses q/k/v and gate/up, token-exact) -> (mixed: int8 prefill
+          tree, quantized BEFORE the consuming pass frees the bf16
+          kernels) -> consuming int4/int8 quantize -> to_device.
 
         quant: "int8" (near-lossless default), "int4" (grouped int4
         weights), "mixed" (int8 prefill tree + int4 decode tree),
-        "none" (no-op).
-        fuse: fuse q/k/v and gate/up into one matmul each
-        (llada.to_fused_layout) before an int4 quantize."""
+        "none" (no-op)."""
         if quant == "none":
             return self
         from . import llada as llada_model
 
+        bits = 4 if quant in ("int4", "mixed") else 8
         lp = llada_model.unstack_blocks(self.params["llada"])
         self.params["llada"] = None  # free the stacked tree once unstacked
-        if fuse and quant in ("int4", "mixed"):
-            lp, lcfg = llada_model.to_fused_layout(lp, self.cfg.llada)
-            self.cfg = self.cfg.replace(llada=lcfg)
+        lp, lcfg = llada_model.serving_block_layout(lp, self.cfg.llada, bits)
+        self.cfg = self.cfg.replace(llada=lcfg)
         if quant == "mixed":
             self.prefill_params = llada_model.quantize_params(lp, bits=8)
         self.params["llada"] = llada_model.quantize_params(
-            lp, bits=4 if quant in ("int4", "mixed") else 8, consume=True)
+            lp, bits=bits, consume=True)
         del lp
         return self.to_device()
 

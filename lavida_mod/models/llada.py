@@ -578,6 +578,17 @@ def to_fused_layout(params: Params, cfg: LLaDAConfig) -> tuple[Params, LLaDAConf
     return {**params, "blocks": new_blocks}, new_cfg
 
 
+def serving_block_layout(params: Params, cfg: LLaDAConfig,
+                         bits: Optional[int]) -> tuple[Params, LLaDAConfig]:
+    """The one block-layout rule of every serving entry point: a tree
+    about to be quantized to int4 takes the fused layout (to_fused_layout,
+    token-exact; 4 matmuls per block instead of 7); int8 and bf16 trees
+    keep the llama layout.  Call before quantize_params."""
+    if bits == 4 and cfg.block_type == "llama":
+        return to_fused_layout(params, cfg)
+    return params, cfg
+
+
 def resize_token_embeddings(
     params: Params, new_size: int, init: str = "mean"
 ) -> Params:

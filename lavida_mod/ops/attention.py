@@ -19,6 +19,8 @@ Masks are bool, broadcastable to [B, H, T, S], True = attend
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
@@ -132,8 +134,35 @@ def attention(
     if mask is not None:
         mask = jnp.broadcast_to(
             mask, (q.shape[0], mask.shape[1], q.shape[1], k.shape[1]))
+    if impl == "cudnn" and (q.shape[1] % 2 or k.shape[1] % 2):
+        return _grad_through_xla(impl, q, k, v, mask)
     return jax.nn.dot_product_attention(q, k, v, mask=mask,
                                         implementation=impl)
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _grad_through_xla(impl, q, k, v, mask):
+    """`impl` forward, XLA's form for the gradient.
+
+    cuDNN's fused backward in JAX rejects odd sequence lengths (its
+    training check counts the unused bias slot as a bias), and SigLIP's
+    729 tokens are odd; its forward takes them."""
+    return jax.nn.dot_product_attention(q, k, v, mask=mask,
+                                        implementation=impl)
+
+
+def _grad_through_xla_fwd(impl, q, k, v, mask):
+    return _grad_through_xla(impl, q, k, v, mask), (q, k, v, mask)
+
+
+def _grad_through_xla_bwd(impl, res, g):
+    q, k, v, mask = res
+    _, vjp = jax.vjp(lambda q, k, v: jax.nn.dot_product_attention(
+        q, k, v, mask=mask, implementation="xla"), q, k, v)
+    return (*vjp(g), None)
+
+
+_grad_through_xla.defvjp(_grad_through_xla_fwd, _grad_through_xla_bwd)
 
 
 def blockwise_attention(

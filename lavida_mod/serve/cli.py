@@ -62,14 +62,7 @@ def main():
         if args.tp > 1:
             model.shard(tp=args.tp)
         else:
-            model.to_serving_layout(
-                quant=args.quant,
-                # fused layout only in its winning regime (<=32-row
-                # decode tiles; fat tiles regress — see
-                # to_serving_layout)
-                fuse=(args.quant in ("int4", "mixed")
-                      and args.max_new_tokens <= 32),
-            )
+            model.to_serving_layout(quant=args.quant)
         from lavida_mod.data.tokenizer import load_hf_or_offline
 
         tokenizer = load_hf_or_offline(args.model_path)

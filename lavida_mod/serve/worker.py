@@ -346,10 +346,6 @@ def main():
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel bf16 serving over N devices "
                          "(no quantization — LaViDa.shard)")
-    ap.add_argument("--gen-len-hint", type=int, default=32,
-                    help="expected max_new_tokens of the serving traffic; "
-                         "the fused q/k/v + gate/up layout is applied only "
-                         "when this is <= 32 (mirrors predict.py)")
     ap.add_argument("--tiny", action="store_true",
                     help="random tiny model (no checkpoint; smoke/dev)")
     args = ap.parse_args()
@@ -393,15 +389,9 @@ def main():
     else:
         # host_staging: quantize host-side, ship via .to_device()
         model = LaViDa.load(args.model_path, host_staging=True)
-        # fused layout only when the batcher is off AND traffic is
-        # short-gen (--gen-len-hint mirrors predict.py's
-        # max_new_tokens<=32 gate)
         model.to_serving_layout(
             quant=("mixed" if args.mixed else
-                   "int4" if args.int4 else "int8"),
-            fuse=(args.int4 and args.decode_batch <= 1
-                  and args.gen_len_hint <= 32),
-        )
+                   "int4" if args.int4 else "int8"))
         tokenizer = _load_tokenizer(args.model_path)
 
     eval_model = LavidaEvalModel(model, tokenizer,

@@ -158,11 +158,7 @@ def main():
             args.int4 = True  # the mixed split rides the int4 decode tree
         model.to_serving_layout(
             quant=("mixed" if args.mixed else
-                   "int4" if args.int4 else "int8"),
-            # fused layout only in its winning regime: B=1, <=32-row
-            # decode tiles (fat tiles regress — see to_serving_layout)
-            fuse=args.int4 and args.max_new_tokens <= 32,
-        )
+                   "int4" if args.int4 else "int8"))
 
     conv = get_conv_template(args.conv_template)
     if tokenizer is not None:

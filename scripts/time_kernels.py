@@ -12,7 +12,8 @@ the serving shapes, beside the alternatives the choice was made between:
               integer W4A8 form at decode rows (M=32); W8A8 vs bf16 at
               prefill rows (M=1029), with the GEMM kernels XLA chose
   kv cache    int8 / int4 cache attention vs bf16 attention
-  the rest    SigLIP MLP chain, the splice gather, one int4 decode layer
+  the rest    SigLIP MLP chain, the splice gather, one decode layer in
+              bf16 and int4, each in the llama and the fused layout
 
 A time is the median over repeats of one jitted call that runs the op
 R times on distinct weights (so no work is hoisted or shared) and
@@ -290,7 +291,8 @@ def main():
                             table, idx)
         record("gather", "1029 rows of 4096 from 1030", "xla", s / R)
 
-    # ---- one int4 decode layer (fused layout) vs bf16, M=32 rows
+    # ---- one decode layer, M=32 rows: bf16 and int4, each in the llama
+    # layout (q/k/v, gate/up apart) and the fused one (to_fused_layout)
     if want("layer"):
         from lavida_mod.config import LLaDAConfig
         from lavida_mod.models import llada as L
@@ -298,15 +300,17 @@ def main():
         # LLaDA-8B layer widths; a small vocab, since only the layers run
         cfg = LLaDAConfig(n_layers=R, d_model=4096, mlp_hidden_size=12288,
                           vocab_size=256, embedding_size=256)
-        params = L.unstack_blocks(L.init_params(cfg, key, jnp.bfloat16))
-        params, fcfg = L.to_fused_layout(params, cfg)
+        llama = L.unstack_blocks(L.init_params(cfg, key, jnp.bfloat16))
         x = rand(key, (1, 32, 4096))
-        for form, p in (("bf16", params),
-                        ("int4", L.quantize_params(params, bits=4))):
-            s, _, _ = time_call(lambda p, x: L.forward(
-                p, fcfg, x, return_logits=False)[0], p, x)
-            record("layer", "LLaDA decode layer M=32 (fused layout)", form,
-                   s / R)
+        for layout in ("llama", "fused"):
+            params, lcfg = ((llama, cfg) if layout == "llama"
+                            else L.to_fused_layout(llama, cfg))
+            for form, p in (("bf16", params),
+                            ("int4", L.quantize_params(params, bits=4))):
+                s, _, _ = time_call(lambda p, x: L.forward(
+                    p, lcfg, x, return_logits=False)[0], p, x)
+                record("layer", f"LLaDA decode layer M=32 ({layout})",
+                       form, s / R)
     sink.close()
 
 

@@ -206,6 +206,72 @@ def test_blockwise_matches_attention(kv_block, prefix):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("mask_kind", ["none", "padding+prefix"])
+@pytest.mark.parametrize("T,S", [(29, 29), (30, 31), (729, 729)])
+def test_grad_through_xla_matches_plain_attention(mask_kind, T, S):
+    """The odd-length route: its forward is the named implementation's,
+    its gradient XLA's form's; with XLA named, both equal plain
+    attention, masked or not."""
+    B = 2
+    q, k, v = _qkv(B, T, S, 4, 2, 32, seed=T + S)
+    mask = _mask(mask_kind, B, T, S)
+    if mask is not None:
+        mask = jnp.broadcast_to(mask, (B, 1, T, S))
+    w = jax.random.normal(jax.random.PRNGKey(5), q.shape)
+
+    def plain(q, k, v):
+        return A.attention(q, k, v, mask, implementation="xla")
+
+    def routed(q, k, v):
+        return A._grad_through_xla("xla", q, k, v, mask)
+
+    np.testing.assert_allclose(np.asarray(routed(q, k, v)),
+                               np.asarray(plain(q, k, v)), atol=1e-6)
+    got, ref = (jax.grad(lambda q, k, v: jnp.sum(f(q, k, v) * w),
+                         argnums=(0, 1, 2))(q, k, v) for f in (routed, plain))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r), atol=1e-5)
+
+
+@pytest.mark.parametrize("T,S,routed", [
+    (729, 729, True), (1029, 1029, True), (32, 1061, True),
+    (30, 1061, True), (512, 512, False), (32, 1152, False)])
+def test_cudnn_odd_lengths_take_the_xla_gradient(monkeypatch, T, S, routed):
+    """A cuDNN call with an odd query or key length goes through
+    _grad_through_xla; an even one calls cuDNN directly."""
+    seen = []
+    monkeypatch.setattr(A, "_grad_through_xla",
+                        lambda impl, q, k, v, mask: seen.append(impl) or q)
+    monkeypatch.setattr(jax.nn, "dot_product_attention",
+                        lambda q, k, v, mask, implementation: q)
+    q, k, v = _qkv(1, T, S, 2, 2, 8, dtype=jnp.bfloat16)
+    A.attention(q, k, v, implementation="cudnn")
+    assert seen == (["cudnn"] if routed else [])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,Hq,hd", [
+    (2, 729, 16, 72),       # SigLIP so400m views in stage-2 training
+    (1, 1029, 32, 128),     # an odd-length LLaDA row
+])
+def test_cudnn_odd_length_gradient_on_card(gpu, B, T, Hq, hd):
+    """Training through cuDNN at an odd length: grads of q, k, v vs the
+    f32 reference (bf16 inputs; max error relative to the largest grad)."""
+    q, k, v = _qkv(B, T, T, Hq, Hq, hd, seed=T)
+    w = jax.random.normal(jax.random.PRNGKey(6), q.shape)
+    bf = [x.astype(jnp.bfloat16) for x in (q, k, v)]
+    got = jax.grad(lambda q, k, v: jnp.sum(
+        A.attention(q, k, v).astype(jnp.float32) * w),
+        argnums=(0, 1, 2))(*bf)
+    with jax.default_matmul_precision("highest"):
+        ref = jax.grad(lambda q, k, v: jnp.sum(A.dense_attention(
+            q, k, v) * w), argnums=(0, 1, 2))(
+            *[x.astype(jnp.float32) for x in bf])
+    for g, r in zip(got, ref):
+        g, r = np.asarray(g, np.float32), np.asarray(r)
+        assert np.abs(g - r).max() <= 3e-2 * np.abs(r).max()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,S,Hq,Hkv,hd", [
     (1029, 1029, 32, 32, 128),     # LLaDA prefill

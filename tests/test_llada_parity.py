@@ -406,3 +406,47 @@ def test_fused_layout_int4_token_exact():
     gb = np.asarray(generate(q_fused, fcfg,
                              jl.embed_tokens(q_fused, ids), gen_cfg))
     np.testing.assert_array_equal(ga, gb)
+
+
+@pytest.mark.parametrize("bits,block_type,fused", [
+    (4, "llama", True), (8, "llama", False), (None, "llama", False),
+    (4, "sequential", False)])
+def test_serving_block_layout_rule(bits, block_type, fused):
+    """serving_block_layout is the one layout rule of the serving entry
+    points: only a llama-layout tree bound for int4 is fused; int8 and
+    bf16 trees, and a checkpoint already in the fused layout, pass
+    through unchanged."""
+    import jax
+
+    from lavida_mod.config import tiny_llada_config
+    from lavida_mod.models import llada as jl
+
+    cfg = tiny_llada_config(block_type=block_type)
+    params = jl.unstack_blocks(jl.init_params(cfg, jax.random.PRNGKey(0)))
+    out, ocfg = jl.serving_block_layout(params, cfg, bits)
+    assert (ocfg.block_type == "sequential") == (fused or
+                                                 block_type == "sequential")
+    if fused:
+        assert "att_proj" in out["blocks"][0]
+        assert "q_proj" not in out["blocks"][0]
+    else:
+        assert out is params and ocfg is cfg
+
+
+@pytest.mark.parametrize("quant,block_type", [
+    ("int4", "sequential"), ("mixed", "sequential"), ("int8", "llama")])
+def test_to_serving_layout_applies_the_rule(quant, block_type):
+    """LaViDa.to_serving_layout applies the rule: int4 and mixed serve the
+    fused layout, int8 the llama one."""
+    from lavida_mod.config import (LaViDaConfig, VisionConfig,
+                                   tiny_siglip_config)
+    from lavida_mod.models.lavida import LaViDa
+
+    cfg = LaViDaConfig(
+        llada=tiny_llada_config(),
+        vision=VisionConfig(siglip=tiny_siglip_config(), mm_hidden_size=32))
+    model = LaViDa.random_init(cfg, 0, jnp.float32)
+    model.to_serving_layout(quant=quant)
+    assert model.cfg.llada.block_type == block_type
+    assert ("att_proj" in model.params["llada"]["blocks"][0]) == (
+        block_type == "sequential")
